@@ -1,6 +1,6 @@
 // neojax native runtime: WAV codec + real-time re-blocker.
 //
-// The TPU compute path is JAX/Pallas; this is the host-side runtime that
+// The device compute path is JAX/XLA; this is the host-side runtime that
 // surrounds it — the role the reference implements in C++ for its CLI and
 // plugin (WAV I/O, extra/cli/src/wav.hpp:50,89; frame re-blocking with
 // latency management, extra/plugin/src/dsp/ConstantOverlapAdd.hpp:12,89-199).
@@ -158,7 +158,7 @@ int64_t neo_wav_encode16(const float* in, int32_t channels, uint64_t frames,
 // Buffers arbitrary host block sizes into fixed frames with one frame of
 // latency, like the plugin's ConstantOverlapAdd adapter: the host pushes
 // N samples and pops N samples each callback; internally whole frames are
-// handed to the (Python/TPU) processor when available.
+// handed to the (Python/JAX) processor when available.
 
 struct NeoReblocker {
   int32_t channels;
@@ -257,7 +257,7 @@ void neo_reblocker_pop(void* h, float* out, int32_t n) {
 
 // Single-producer single-consumer float ring buffer: the host-side
 // real-time transport between an audio callback and the compute worker
-// (the runtime role a C++ engine would play around the TPU stream; no
+// (the runtime role a C++ engine would play around the device stream; no
 // locks, two atomic cursors, power-of-2 capacity).
 struct neo_ring {
   std::vector<float> buf;

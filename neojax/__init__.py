@@ -1,6 +1,6 @@
-"""neojax — TPU-native partitioned-convolution DSP framework.
+"""neojax — partitioned-convolution DSP framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 ``neo-sonar/neo-dsp`` C++ library: the FFT family (rfft/stft/dct/Bluestein),
 streaming FFT convolution (direct, single-shot, OLA/OLS), and the
 uniformly-partitioned frequency-delay-line convolution engine in dense,
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from neojax import conv, core, dist, fft, io, kernels, ops
+from neojax import conv, core, dist, fft, io, ops
 from neojax.core.units import (
     a_weighting,
     amplitude_to_db,
@@ -38,7 +38,6 @@ __all__ = [
     "dist",
     "fft",
     "io",
-    "kernels",
     "ops",
 ]
 

@@ -1,9 +1,9 @@
 """Profiling and structured run reporting.
 
 SURVEY.md section 5: the reference's observability is google-benchmark
-counters + wall-clock prints; the TPU-native equivalents here are
+counters + wall-clock prints; the equivalents here are
 ``jax.profiler`` trace capture plus structured per-run JSON records
-(config, samples/s/chip, roofline fraction, SNR) for baseline tracking.
+(config, samples/s per device, roofline fraction, SNR) for baseline tracking.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Scaling-efficiency harness: samples/s/chip across mesh sizes.
+"""Scaling-efficiency harness: samples/s per device across mesh sizes.
 
 BASELINE.md's third north-star metric is 1 -> N-device scaling efficiency
 (>= 0.9) for the channel-sharded streaming convolution. This module
-measures it on whatever devices exist: a real TPU slice when available,
+measures it on whatever devices exist: real GPUs when available,
 or the `--xla_force_host_platform_device_count` CPU mesh (structure
 validation only — CPU wall-clock is not the metric).
 

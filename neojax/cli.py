@@ -28,7 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--engine", default="upols",
         choices=["upols", "upola", "chunked", "nested", "hybrid"],
-        help="chunked = Toeplitz-MXU throughput mode; nested = two-level-FDL "
+        help="chunked = Toeplitz-GEMM throughput mode; nested = two-level-FDL "
         "throughput mode (fastest; per-channel capable) — both offline with "
         "S-block latency; hybrid = two-stage real-time mode (single-block "
         "latency at near-throughput speed).",

@@ -1,6 +1,6 @@
-"""Chunked (multi-block) partitioned convolution: the MXU throughput path.
+"""Chunked (multi-block) partitioned convolution: the GEMM throughput path.
 
-The per-block streaming step (``conv.convolver.step``) is bound by the VPU:
+The per-block streaming step (``conv.convolver.step``) is bound by memory:
 each block re-reads the whole delay line for an elementwise MAC with O(1)
 flops/byte. For offline/throughput workloads this module processes ``S``
 blocks per step and reformulates the FDL MAC as a *batched Toeplitz matmul*
@@ -10,11 +10,10 @@ over frequency bins:
                  = sum_m T_k[s, m] * hist[m, c, k]
 
 where ``hist`` holds the last spectra (read ONCE per chunk — S-fold less
-HBM traffic than per-block streaming) and ``T_k`` is the [S, M] Toeplitz
+memory traffic than per-block streaming) and ``T_k`` is the [S, M] Toeplitz
 form of filter bin k's partition sequence, built once at filter-setup
 time. The complex structure folds into a single real batched matmul per
-bin ([K, 2S, 2M] @ [K, 2M, C]) that runs on the MXU at full bandwidth
-(~15 TFLOP/s measured on v5e vs <1 TFLOP/s for the per-block VPU MAC).
+bin ([K, 2S, 2M] @ [K, 2M, C]) that runs as one batched GEMM.
 
 Sparsity (the reference's CSR sparse filter / perceptual thresholding,
 ``sparse_filter.hpp``, ``DenseConvolution.cpp:205-267``) maps to *banded
@@ -29,16 +28,15 @@ schedule; summation order differs within f32 tolerance). Latency grows to
 S blocks — streaming real-time use keeps the per-block path.
 
 Dtype policy: storage "split" contracts in f32 (Precision.HIGHEST),
-"bf16" stores history + Toeplitz in bf16 and accumulates f32 on the MXU.
+"bf16" stores history + Toeplitz in bf16 and accumulates in f32.
 Shared (single-channel) filters only BY DESIGN: the per-channel case
 would need a [K, C, 2S, 2M] Toeplitz operand (terabytes at production
 sizes) — per-channel IRs route to the nested engine, which covers them
 at the same throughput class (see ``neojax.cli``).
 
-Note: an earlier hand-written Pallas per-bin matmul kernel (toeplitz_mac)
-was removed — once the complex structure is folded into ONE real batched
-matmul (the [K, 2S, 2M] @ [K, 2M, C] dot_general below), XLA lowers it to
-the MXU at full rate and the custom kernel had nothing left to beat.
+The complex structure is folded into ONE real batched matmul (the
+[K, 2S, 2M] @ [K, 2M, C] dot_general below), which XLA hands to its GEMM
+libraries; no hand-written kernel is needed.
 """
 
 from __future__ import annotations
@@ -161,7 +159,7 @@ def chunked_init_state(config: PartitionedConfig, params: dict) -> dict:
     exactly the dot layout means the per-chunk update is a single
     shift-concat instead of three window-sized copies (concat re/im,
     concat hcat, re-slice tail) — the HBM traffic that dominated this
-    path (the window is ~P*K*C entries; the MXU matmul itself is cheap).
+    path (the window is ~P*K*C entries; the matmul itself is cheap).
     """
     dtype = jnp.bfloat16 if config.storage == "bf16" else jnp.float32
     c = config.channels
@@ -180,14 +178,12 @@ def _precision(config: PartitionedConfig):
 
 
 def _fft_precisions(config: PartitionedConfig):
-    """(forward, inverse) MXU precision for the block transforms.
+    """(forward, inverse) matmul precision for the block transforms.
 
-    "split" (f32) keeps HIGHEST (6-pass bf16 = true f32; the 1e-5 parity
-    bound). "bf16" is the balanced speed mode: once the engine's copies
-    were eliminated the transforms dominate, and DEFAULT (1-pass bf16)
-    buys ~33% end-to-end for a measured 51.2 -> 46.6 dB SNR on the
-    10 s-IR config — the storage ladder stays monotone (int16 87 dB >
-    bf16 46.6 > int8 40.5).
+    "split" (f32) keeps HIGHEST (true f32; the 1e-5 parity bound). "bf16"
+    is the balanced speed mode: the transforms dominate the engine, and
+    DEFAULT (TF32 on the GPU for f32 operands; bf16 operands stay bf16)
+    stays well inside the rung's 40 dB class.
     """
     if config.storage == "bf16":
         return (lax.Precision.DEFAULT, lax.Precision.DEFAULT)
@@ -201,7 +197,7 @@ def process_chunked(
     signal: jnp.ndarray,
     chunk_blocks: int,
 ):
-    """Process [C, T] through the Toeplitz-MXU path, S blocks per scan step.
+    """Process [C, T] through the Toeplitz-GEMM path, S blocks per scan step.
 
     T is padded up to a multiple of S*B (output trimmed; the returned state
     reflects the padded stream — use the per-block path when exact mid-
@@ -254,8 +250,8 @@ def process_chunked(
             bins = bucket["bins"]
             # A bucket whose bin count equals K covers every bin in order
             # (buckets hold sorted disjoint indices), so the gather/scatter
-            # can be skipped — bin indexing costs ~0.7 ms on v5e vs ~40 us
-            # for the MXU matmul itself. Static shape check: jit-safe.
+            # can be skipped (a gather + scatter over the whole window).
+            # Static shape check: jit-safe.
             full = bins.shape[0] == k
             new_re = kre if full else kre[bins]  # [Kb, S, C]
             new_im = kim if full else kim[bins]

@@ -1,6 +1,6 @@
 """Uniformly-partitioned FDL convolvers (UPOLS / UPOLA) — the product.
 
-TPU-native counterpart of
+Counterpart of
 ``src/neo/convolution/uniform_partitioned_convolver.hpp:14-66`` and its
 aliases (``dense_convolver.hpp:20-39``, ``sparse_convolver.hpp:16-21``).
 The reference composes policy templates {overlap_save, overlap_add} x
@@ -73,18 +73,10 @@ class PartitionedConfig:
     # contiguous rotated-filter slice — the fast path). "shift": newest-first
     # shift layout (simplest dataflow; used by the distributed pipeline).
     layout: str = "ring"
-    # MAC engine for the partition reduce: "xla" (fused jnp) or "pallas"
-    # (neojax.kernels.fdl_mac); "auto" picks per platform/storage.
-    mac_backend: str = "auto"
-    # Fused per-block Pallas pipeline (rfft + insert + MAC + irfft in one
-    # kernel, neojax.kernels.fused_step). None = auto: on for packed ring
-    # split-plane configs with the pallas MAC and no sparsity mask, when
-    # the transform is small enough for VMEM-resident DFT matrices.
-    fused: bool | None = None
     # Packed-512 spectrum layout (Nyquist.re stored in the im-plane DC lane,
     # DC/Ny history in an exact f32 side-carry): the FDL's lane count is the
-    # power-of-two B instead of B+1, so planes tile densely in HBM — the
-    # 513->640 lane padding would waste 25% of the hot MAC's bandwidth.
+    # power-of-two B instead of B+1, so the planes' minor axis is a power
+    # of two.
     # None = auto (on for ring-layout split storages with even block size).
     packed: bool | None = None
 
@@ -113,8 +105,6 @@ class PartitionedConfig:
             raise ValueError(f"unknown storage: {self.storage!r}")
         if self.layout not in ("ring", "shift"):
             raise ValueError(f"unknown layout: {self.layout!r}")
-        if self.mac_backend not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown mac_backend: {self.mac_backend!r}")
         if self.packed and (
             self.storage == "dense"
             or self.layout != "ring"
@@ -124,8 +114,6 @@ class PartitionedConfig:
                 "packed layout requires a split-plane storage, ring layout "
                 "and an even block size"
             )
-        if self.fused and not self.use_packed:
-            raise ValueError("fused=True requires the packed ring layout")
 
 
 def _canon_partitions(config: PartitionedConfig, partitions: "np.ndarray") -> "np.ndarray":
@@ -157,14 +145,12 @@ def filter_params(
 ) -> dict:
     """Build filter params from partitioned spectra ([C|1, P, K] complex).
 
-    Filter preparation is *host-side* (numpy): complex dtypes are a host
-    convenience only — TPU runtimes need not support complex64 at all, so
-    only the final float32 re/im planes (or, for the CPU-only "dense"
-    storage, the complex array) ever reach a device.
+    Filter preparation is *host-side* (numpy): only the final float32 re/im
+    planes (or, for the "dense" storage, the complex array) reach a device.
 
     ``sparsity``: optional predicate ``(row, col, value) -> bool`` or a
     boolean mask broadcastable to the filter; kept bins stay, others zero
-    (the reference's sparse_filter/CSR semantics, mask-form for TPU).
+    (the reference's sparse_filter/CSR semantics, in mask form).
     """
     filt = _canon_partitions(config, np.asarray(partitions)).astype(np.complex64)
 
@@ -205,21 +191,6 @@ def filter_params(
         params["filt_re"] = jnp.asarray(_np_tile_reverse(fr))
         params["filt_im"] = jnp.asarray(_np_tile_reverse(fi))
         params["filt_dcny"] = jnp.asarray(_np_tile_reverse(fdcny))
-        # Lane-packed re|im planes for the fused kernel (one filter DMA per
-        # chunk), storage-matched dtype: bf16 filter for the bf16/int8
-        # storages (their storage floor dominates), f32 for split/int16.
-        fdt = np.float32 if config.storage in ("split", "int16") else np.dtype("bfloat16")
-        rim = np.concatenate(
-            [_np_tile_reverse(fr), _np_tile_reverse(fi)], axis=-1
-        ).astype(fdt)  # [2P, C', 2B]
-        if fr.shape[1] == 1:
-            # 8 pre-shifted copies for the fused kernel's aligned rotated-
-            # filter DMA (see kernels.fused_step.shift8_filter).
-            from neojax.kernels.fused_step import shift8_filter
-
-            params["filt_rim8"] = jnp.asarray(shift8_filter(rim))
-        else:
-            params["filt_rim"] = jnp.asarray(rim)
     else:
         fr = np.real(filt).astype(np.float32)
         fi = np.imag(filt).astype(np.float32)
@@ -230,44 +201,6 @@ def filter_params(
         params["filt_im"] = jnp.asarray(fi)
     if mask is not None:
         params["mask"] = jnp.asarray(mask)
-        if config.storage != "dense" and ring:
-            # Tile schedule for the Pallas sparse MAC: per-rotation active
-            # (k-tile, p-chunk) tables (the TPU form of the reference's CSR
-            # row iteration, ``multiply_add.hpp:306-324``). Built with the
-            # same tile geometry the dense kernel would use.
-            from neojax.kernels.fdl_mac import choose_chunks
-            from neojax.kernels.sparse_mac import build_sparse_schedule
-
-            k_sched = config.block_size if config.use_packed else config.num_bins
-            m = mask[:, :, :k_sched]
-            k_tile, pc = choose_chunks(
-                fdl_lib.STORAGE_DTYPES[config.storage],
-                filt.shape[0],
-                config.channels,
-                k_sched,
-            )
-            sched = build_sparse_schedule(m, pc, k_tile)
-            params["sp_k_idx"] = jnp.asarray(sched["k_idx"])
-            params["sp_p_idx"] = jnp.asarray(sched["p_idx"])
-            params["sp_flags"] = jnp.asarray(sched["flags"])
-            params["sp_lane"] = jnp.asarray(sched["lane_mask"])
-        if config.use_packed:
-            # Chunk-granular schedule for the FUSED sparse step (full-lane
-            # rows, so only the partition axis can be skipped there).
-            from neojax.kernels.fused_step import fused_chunk_rows
-            from neojax.kernels.sparse_mac import build_chunk_schedule
-
-            pcf = fused_chunk_rows(
-                fdl_lib.STORAGE_DTYPES[config.storage],
-                filt.shape[0],
-                config.channels,
-                config.block_size,
-            )
-            csched = build_chunk_schedule(
-                mask, pcf, lanes=config.block_size
-            )
-            params["sp_c_idx"] = jnp.asarray(csched["c_idx"])
-            params["sp_c_flags"] = jnp.asarray(csched["flags"])
     return params
 
 
@@ -295,10 +228,9 @@ def _use_split_fft(config: PartitionedConfig) -> bool:
 
 # Transform sizes at or above this stream through the four-step (Bailey)
 # recursion instead of the dense DFT matmul. The dense [N, N/2] matrices at
-# N = 4096 are 2 x 33 MB (forward) + 2 x 33 MB (inverse) of HBM re-read per
-# streamed block; the four-step path touches O(channels * N) per pass with
-# KB-sized leaf matrices. Below this the matrices are VMEM-resident literals
-# and fuse with neighbours — keep the single-matmul path.
+# N = 4096 are 2 x 33 MB (forward) + 2 x 33 MB (inverse) of device memory
+# re-read per streamed block; the four-step path touches O(channels * N) per
+# pass with KB-sized leaf matrices. Below this keep the single-matmul path.
 _FOURSTEP_MIN_N = 4096
 
 
@@ -309,34 +241,6 @@ def _use_fourstep_stream(config: PartitionedConfig) -> bool:
         and config.fft_backend in (None, "auto", "matmul")
         and n >= _FOURSTEP_MIN_N
         and n & (n - 1) == 0  # four-step recursion is pow-2 only
-    )
-
-
-def _use_fused(config: PartitionedConfig, params: dict) -> bool:
-    if "sp_k_idx" in params and "sp_c_idx" not in params:
-        return False  # lane-level sparse kernel owns non-packed masked configs
-    if config.fused is not None:
-        return config.fused
-    return (
-        config.use_packed
-        and config.layout == "ring"
-        and config.block_size <= 1024
-        and _use_pallas_mac(config)
-    )
-
-
-def _use_pallas_mac(config: PartitionedConfig) -> bool:
-    if config.storage == "dense":
-        return False
-    if config.mac_backend == "pallas":
-        return True
-    if config.mac_backend == "xla":
-        return False
-    # auto: the Pallas kernel is TPU-only. All split-plane storages use it,
-    # including int8/int16 — the fused in-kernel dequant beats the XLA path
-    # ~3x (which materializes a dequantized f32 delay line every block).
-    return jax.default_backend() == "tpu" and config.storage in (
-        "split", "bf16", "int8", "int16"
     )
 
 
@@ -353,7 +257,7 @@ def _frame(config: PartitionedConfig, state: dict, block: jnp.ndarray) -> jnp.nd
 
 
 def _transform_mats(config: PartitionedConfig):
-    """Precompute the DFT matmul matrices used by the unfused step — built
+    """Precompute the DFT matmul matrices used by the per-block step — built
     ONCE outside lax.scan and closed over as loop constants. For in-trace
     sizes (block >= ~1024) leaving them to the transform calls would rerun
     the trig generation EVERY scan iteration (~4.5 ms/block at N=8192)."""
@@ -446,115 +350,6 @@ def insert_only_step(config: PartitionedConfig, state: dict, block: jnp.ndarray,
     return new_state
 
 
-def _fused_step(config: PartitionedConfig, params: dict, state: dict, frame):
-    """Run one block through the fused Pallas pipeline (packed ring layout).
-
-    The kernel owns rfft + quantize + ring insert + MAC + irfft; this
-    wrapper computes the exact DC/Nyquist side-carry update (two trivial
-    reductions — the packed forward matrix's lane-0 columns are all-ones /
-    alternating-sign) and its rotated side-filter MAC, which the kernel
-    consumes as the lane-0 overwrite.
-    """
-    from neojax.kernels.fused_step import fused_block_step
-
-    n = config.transform_size
-    p = config.num_partitions
-    pos = state["pos"]
-
-    alt = jnp.where(jnp.arange(n) % 2 == 0, 1.0, -1.0)
-    dc = jnp.sum(frame, axis=-1)  # [C]
-    ny = jnp.sum(frame * alt, axis=-1)
-    pair = jnp.stack([dc, ny], axis=-1)  # [C, 2]
-    z = jnp.zeros((), pos.dtype)
-    new_dcny = jax.lax.dynamic_update_slice(state["dcny"], pair[None], (pos, z, z))
-    filt_dcny = fdl_lib.rotated_filter(params["filt_dcny"], pos, p)
-    dcfix = fdl_lib.dcny_mac(new_dcny, filt_dcny).T  # [2, C]
-
-    # Storage-matched transform precision (the policy measured in
-    # conv.chunked._fft_precisions): bf16 matrices for the reduced-precision
-    # storages halve the 2x(N x B) matrix re-read per block — the largest
-    # fixed HBM cost of the fused step — at the storage's own SNR class.
-    # Built via the traced generators, NOT packed_mats_np literals: an
-    # embedded constant costs ~24 ms/call on the remote runtime.
-    mat_dt = jnp.bfloat16 if config.storage in ("bf16", "int8") else jnp.float32
-    cs = jnp.stack(matmul_backend.rfft_packed_matrices(n)).astype(mat_dt)
-    ab = jnp.stack(matmul_backend.irfft_packed_matrices(n)).astype(mat_dt)
-
-    shared = "filt_rim8" in params
-    rim = params["filt_rim8"] if shared else params["filt_rim"]
-    sched = None
-    if "sp_c_idx" in params:
-        sched = (
-            jax.lax.dynamic_index_in_dim(params["sp_c_idx"], pos, 0, False),
-            jax.lax.dynamic_index_in_dim(params["sp_c_flags"], pos, 0, False),
-        )
-    fdl = state["fdl"]
-    if isinstance(fdl, tuple):
-        planes, scales = fdl
-        y, new_planes, new_scales = fused_block_step(
-            frame, planes, rim, pos, dcfix, cs, ab,
-            jnp.swapaxes(scales, 1, 2), sched, shared_filter=shared,
-        )
-        new_fdl = (new_planes, jnp.swapaxes(new_scales, 1, 2))
-    else:
-        y, new_fdl = fused_block_step(
-            frame, fdl, rim, pos, dcfix, cs, ab, None, sched,
-            shared_filter=shared,
-        )
-    return y, {"fdl": new_fdl, "dcny": new_dcny}
-
-
-def _split_mac(config: PartitionedConfig, params: dict, new_fdl, pos):
-    """The split-plane partition MAC-reduce of one block step: rotated
-    filter slice + Pallas (or XLA) complex MAC with fused dequant, incl.
-    the tile-sparse schedule. Shared by ``step`` and the batched large-N
-    stream paths. Returns (acc_re, acc_im)."""
-    ring = config.layout == "ring"
-    p = config.num_partitions
-    if ring:
-        filt_re = fdl_lib.rotated_filter(params["filt_re"], pos, p)
-        filt_im = fdl_lib.rotated_filter(params["filt_im"], pos, p)
-    else:
-        filt_re = params["filt_re"]
-        filt_im = params["filt_im"]
-    if _use_pallas_mac(config):
-        from neojax.kernels.fdl_mac import fdl_mac_pallas
-
-        planes, scales = (
-            new_fdl if isinstance(new_fdl, tuple) else (new_fdl, None)
-        )
-        scl = None if scales is None else scales[..., 0]
-        if ring and "sp_k_idx" in params:
-            from neojax.kernels.fdl_mac import choose_chunks
-            from neojax.kernels.sparse_mac import sparse_fdl_mac_pallas
-
-            k_tile, pc = choose_chunks(
-                planes.dtype, p, config.channels, planes.shape[-1]
-            )
-            acc_re, acc_im = sparse_fdl_mac_pallas(
-                planes,
-                filt_re,
-                filt_im,
-                pos,
-                params["sp_k_idx"],
-                params["sp_p_idx"],
-                params["sp_flags"],
-                scl,
-                p_chunk=pc,
-                k_tile=k_tile,
-            )
-            # Bins in k-tiles the schedule never visits are undefined.
-            acc_re = jnp.where(params["sp_lane"], acc_re, 0.0)
-            acc_im = jnp.where(params["sp_lane"], acc_im, 0.0)
-        elif scl is not None:
-            acc_re, acc_im = fdl_mac_pallas(planes, filt_re, filt_im, scl)
-        else:
-            acc_re, acc_im = fdl_mac_pallas(planes, filt_re, filt_im)
-    else:
-        acc_re, acc_im = fdl_lib.fdl_mac_split(new_fdl, filt_re, filt_im)
-    return acc_re, acc_im
-
-
 def step(config: PartitionedConfig, params: dict, state: dict, block: jnp.ndarray,
          mats=None):
     """One streaming block: [C, B] in -> [C, B] out (pure; state is the carry).
@@ -572,19 +367,6 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: jnp.ndarra
     p = config.num_partitions
     pos = state.get("pos")
 
-    if _use_fused(config, params):
-        y, update = _fused_step(config, params, state, frame)
-        if config.scheme == "upols":
-            out = y[..., b:].astype(block.dtype)
-        else:
-            out = (y[..., :b] + state["tail"]).astype(block.dtype)
-            new_tail = y[..., b:]
-        new_state = dict(state)
-        new_state.update(update)
-        new_state["tail"] = new_tail.astype(jnp.float32)
-        new_state["pos"] = (pos + 1) % p
-        return new_state, out
-
     update, _ = _spectrum_and_push(config, state, frame, mats)
     new_fdl = update["fdl"]
     if config.storage == "dense":
@@ -595,7 +377,12 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: jnp.ndarra
         acc = fdl_lib.fdl_mac_dense(new_fdl, filt)
         y = fft_api.irfft(acc, n=n, backend=config.fft_backend)
     else:
-        acc_re, acc_im = _split_mac(config, params, new_fdl, pos)
+        if ring:
+            filt_re = fdl_lib.rotated_filter(params["filt_re"], pos, p)
+            filt_im = fdl_lib.rotated_filter(params["filt_im"], pos, p)
+        else:
+            filt_re, filt_im = params["filt_re"], params["filt_im"]
+        acc_re, acc_im = fdl_lib.fdl_mac_split(new_fdl, filt_re, filt_im)
         if config.use_packed:
             # Overwrite the garbage lane-0 complex product with the exact
             # DC/Nyquist real MACs from the f32 side-carry.
@@ -638,138 +425,6 @@ def step(config: PartitionedConfig, params: dict, state: dict, block: jnp.ndarra
     return new_state, out
 
 
-def _dcfix_sequence(config: PartitionedConfig, params: dict, dcny, pos0, sigpad):
-    """Per-block exact DC/Nyquist accumulators for a whole UPOLS stream.
-
-    The side-carry MAC ``dcfix_i = sum_a F[a] * pair_{i-a}`` is a plain
-    1-D correlation of the per-block (dc, ny) frame sums with the side
-    filter — no scan needed. ``pair_{j<0}`` terms come from the incoming
-    ring state. Returns (dcfix_all [nb, 2, C], new_dcny ring).
-    """
-    b = config.block_size
-    # The Nyquist alternating-sign trick below continues the +/- pattern of
-    # the frame's first half into the second — valid for even B only. The
-    # packed layout (a fused-stream precondition) already enforces even B in
-    # PartitionedConfig.__post_init__; assert here so a future relaxation of
-    # that config rule cannot silently diverge this path from step().
-    assert b % 2 == 0, "fused stream requires an even block size"
-    p = config.num_partitions
-    c = sigpad.shape[0]
-    nb = sigpad.shape[1] // b - 1
-
-    blocks = sigpad.reshape(c, nb + 1, b)
-    alt = jnp.where(jnp.arange(b) % 2 == 0, 1.0, -1.0)
-    bs = jnp.sum(blocks, axis=-1)  # [C, nb+1]
-    na = jnp.sum(blocks * alt, axis=-1)
-    # frame i = [block i | block i+1]; B is even so the +/- pattern of the
-    # second half continues the first.
-    dc = bs[:, :-1] + bs[:, 1:]  # [C, nb]
-    ny = na[:, :-1] + na[:, 1:]
-    pairs = jnp.stack([dc.T, ny.T], axis=-1)  # [nb, C, 2]
-
-    # history (ages 1..P-1 before block 0), oldest first
-    tidx = jnp.mod(pos0 + 1 + jnp.arange(p - 1), p)
-    hist = dcny[tidx]  # [P-1, C, 2]
-    seq = jnp.concatenate([hist, pairs], axis=0)  # [P-1+nb, C, 2]
-
-    # correlation kernel: tiled[:P] is the REVERSED original filter, which
-    # is exactly the cross-correlation kernel for sum_a F[a]*seq[i-a].
-    ker = params["filt_dcny"][:p]  # [P, C', 2]
-    ker = jnp.broadcast_to(ker, (p, c, 2))
-    lhs = jnp.moveaxis(seq, 0, -1).reshape(1, c * 2, p - 1 + nb)
-    rhs = jnp.moveaxis(ker, 0, -1).reshape(c * 2, 1, p)
-    fix = jax.lax.conv_general_dilated(
-        lhs, rhs, (1,), "VALID",
-        dimension_numbers=("NCH", "OIH", "NCH"),
-        feature_group_count=c * 2,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # [1, C*2, nb]
-    dcfix_all = jnp.moveaxis(fix.reshape(c, 2, nb), -1, 0)  # [nb, C, 2]
-    dcfix_all = jnp.swapaxes(dcfix_all, 1, 2)  # [nb, 2, C]
-
-    tail_n = min(p, nb)
-    idxs = jnp.mod(pos0 + nb - tail_n + jnp.arange(tail_n), p)
-    new_dcny = dcny.at[idxs].set(pairs[nb - tail_n :])
-    return dcfix_all, new_dcny
-
-
-def _process_fused_stream(config, params, state, blocks, length):
-    """Whole-stream fused path: ONE pallas_call for the entire scan
-    (kernels.fused_step.fused_stream) — constants load once, no per-block
-    XLA glue. UPOLS + packed ring only; exactness contract matches the
-    per-block fused step (same kernel math, same insert/MAC schedule)."""
-    from neojax.kernels.fused_step import fused_stream
-
-    b = config.block_size
-    p = config.num_partitions
-    c = config.channels
-    n = config.transform_size
-    nb = blocks.shape[0]
-    pos0 = state["pos"]
-
-    sig = jnp.moveaxis(blocks, 0, 1).reshape(c, nb * b)
-    sigpad = jnp.concatenate([state["tail"], sig], axis=-1)
-    dcfix_all, new_dcny = _dcfix_sequence(
-        config, params, state["dcny"], pos0, sigpad
-    )
-
-    mat_dt = jnp.bfloat16 if config.storage in ("bf16", "int8") else jnp.float32
-    # the fused kernel's transform-matrix ABI, built in one place
-    cs, abt = matmul_backend.packed_stream_mats(n, mat_dt)
-
-    sched = None
-    if "sp_c_idx" in params:
-        rows = jnp.mod(pos0 + jnp.arange(nb), p)
-        ci = params["sp_c_idx"][rows]
-        fl = params["sp_c_flags"][rows]
-        # overlapping (step i, step i+1) row pairs — kernel blocks stride
-        # by shape, so the lookahead row is materialized per step; the
-        # final step gets a dummy zero-count lookahead. Counts travel as
-        # scalars (SMEM vector loads are not a thing).
-        ci1 = jnp.concatenate([ci[1:], ci[-1:]], axis=0)
-        n = jnp.sum(fl, axis=1, dtype=jnp.int32)
-        n1 = jnp.concatenate([n[1:], jnp.zeros((1,), jnp.int32)], axis=0)
-        sched = (
-            jnp.stack([ci, ci1], axis=1),  # [nb, 2, L]
-            jnp.stack([n, n1], axis=1)[:, None],  # [nb, 1, 2]
-        )
-
-    shared = "filt_rim8" in params
-    rim = params["filt_rim8"] if shared else params["filt_rim"]
-    fdl = state["fdl"]
-    cpad = -(-c // 128) * 128
-    if isinstance(fdl, tuple):
-        planes, scales = fdl
-        scl = jnp.pad(
-            scales[:, :, 0], ((0, 0), (0, cpad - c)), constant_values=1.0
-        )
-        out, new_planes, new_scl = fused_stream(
-            sigpad, planes, rim, pos0, dcfix_all, cs, abt, scl, sched,
-            shared_filter=shared,
-        )
-        new_fdl = (new_planes, new_scl[:, :c, None])
-    else:
-        out, new_fdl = fused_stream(
-            sigpad, fdl, rim, pos0, dcfix_all, cs, abt, None, sched,
-            shared_filter=shared,
-        )
-
-    new_state = dict(state)
-    new_state.update(
-        tail=sig[:, -b:],
-        fdl=new_fdl,
-        dcny=new_dcny,
-        pos=jnp.mod(pos0 + nb, p),
-    )
-    return new_state, out[:, :length]
-
-
-# NOTE (r4): a batched large-N variant (all forward transforms in one
-# four-step call, scan = insert+MAC only, batched inverse) was built and
-# measured SLOWER than the per-block scan at block 4096 (fetch-synced,
-# same process: ~299 vs ~240 us/block at P=32) — the [C, NB, 2B] relayout
-# passes on ~270 MB cost more than the per-block glue they remove. The
-# per-block four-step path below is the production large-block route.
 def process(
     config: PartitionedConfig, params: dict, state: dict, signal: jnp.ndarray
 ):
@@ -779,17 +434,6 @@ def process(
     if squeeze:
         signal = signal[None]
     blocks, length = stream_blocks(signal, config.block_size)
-
-    if (
-        config.scheme == "upols"
-        and config.layout == "ring"
-        and blocks.shape[0] > 0
-        and _use_fused(config, params)
-    ):
-        state, out = _process_fused_stream(config, params, state, blocks, length)
-        if squeeze:
-            out = out[0]
-        return state, out
 
     mats = _transform_mats(config)
 
@@ -818,7 +462,7 @@ class Convolver:
         require_sparsity: bool = False,
     ):
         if storage is None:
-            # complex64 is a host/CPU convenience; on TPU the split
+            # complex64 on the CPU; on an accelerator the split
             # (planar re/im float) storage is the native layout.
             storage = "dense" if jax.default_backend() == "cpu" else "split"
         self._scheme = scheme
@@ -839,18 +483,8 @@ class Convolver:
         self._jit_step = None
         self._jit_process = None
 
-    def filter(self, partitions, sparsity: Any = None,
-               pad_partitions: int | None = None) -> None:
-        """Install a partitioned filter ([P, K] or [C|1, P, K] spectra).
-
-        ``pad_partitions``: target partition count (>= P) to zero-pad the
-        ring to; None = auto. The extra ring slots carry real (but
-        zero-weighted) spectra, so results are exact — padding only buys
-        full-speed Pallas MAC chunks. Auto pads deep IRs to a multiple of
-        32 but short IRs only to the next multiple of 8 (a P=2 filter
-        padded to 32 would pay 16x the needed MAC traffic); pass
-        ``pad_partitions=P`` to disable padding entirely.
-        """
+    def filter(self, partitions, sparsity: Any = None) -> None:
+        """Install a partitioned filter ([P, K] or [C|1, P, K] spectra)."""
         if sparsity is None:
             sparsity = self._default_sparsity
         if sparsity is None and self._require_sparsity:
@@ -863,27 +497,6 @@ class Convolver:
         partitions = np.asarray(partitions)
         if partitions.ndim == 2:
             partitions = partitions[None]
-        p_in = partitions.shape[1]
-        if pad_partitions is None:
-            mult = 32 if p_in > 32 else 8 if p_in > 8 else 1
-            p_pad = -(-p_in // mult) * mult
-        else:
-            if pad_partitions < p_in:
-                raise ValueError(
-                    f"pad_partitions={pad_partitions} < filter partitions {p_in}"
-                )
-            p_pad = pad_partitions
-        if p_pad != p_in:
-            partitions = np.concatenate(
-                [
-                    partitions,
-                    np.zeros(
-                        (partitions.shape[0], p_pad - p_in, partitions.shape[2]),
-                        partitions.dtype,
-                    ),
-                ],
-                axis=1,
-            )
         channels, p, bins = partitions.shape
         self._filter_channels = channels
         self.config = PartitionedConfig(
@@ -1026,8 +639,7 @@ def upola_convolver() -> Convolver:
 def upola_convolver_v2() -> Convolver:
     # The reference's v2 reschedules the tail-partition sum for arbitrary
     # input lengths (``overlap_add_convolver.hpp:21-137``); block-for-block
-    # its output is identical, and on TPU the fused MAC already amortizes
-    # the partition sum, so v2 shares this implementation.
+    # its output is identical, so v2 shares this implementation.
     return Convolver("upola")
 
 
@@ -1045,8 +657,8 @@ def sparse_upols_convolver(sparsity: Any = None) -> Convolver:
     (``sparse_convolver.hpp:16``, ``sparse_filter.hpp:25-38``): a sparsity
     predicate ``(row, col, value) -> bool`` (or boolean keep-mask) must be
     supplied — here at construction, or later to ``filter(..., sparsity=)``.
-    Dropped bins are excluded from the MAC (zeroed dense planes for XLA,
-    tile-skipped in the Pallas sparse kernel)."""
+    Dropped bins are zeroed in the filter planes (same output; the MAC
+    still reads them)."""
     return Convolver("upols", sparsity=sparsity, require_sparsity=True)
 
 

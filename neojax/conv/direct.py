@@ -1,9 +1,9 @@
 """Time-domain (direct) convolution.
 
 Counterpart of ``src/neo/convolution/direct_convolve.hpp:16-73``. The
-reference runs an O(N*L) scalar double loop; on TPU the same full
-convolution is a single XLA ``conv_general_dilated`` (which lowers to MXU
-work for large kernels) — no hand-scheduled loops.
+reference runs an O(N*L) scalar double loop; here the same full
+convolution is a single XLA ``conv_general_dilated`` — no hand-scheduled
+loops.
 """
 
 from __future__ import annotations

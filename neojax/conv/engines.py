@@ -16,7 +16,7 @@ with this framework's beyond-parity engines:
 Engines: "perblock" (uniform per-block step — TRUE 1-block latency),
 "hybrid" (two-stage head+tail — 1-block latency at near-throughput
 speed), "nested" (two-level FDL — the throughput engine, S-block
-latency), "chunked" (Toeplitz-MXU, S-block latency). For a per-block
+latency), "chunked" (Toeplitz-GEMM, S-block latency). For a per-block
 real-time callback use ``conv.hybrid.HybridStream`` directly.
 """
 

@@ -29,9 +29,9 @@ like ``conv.nested``). Shared and per-channel filters both supported.
 
 int8 stores its HEAD ring at int16 (``_head_storage``): the head is 6.8%
 of the delay-line rows at the headline depth but carries ~42% of a
-decaying IR's signal energy, so head quantization noise dominated the
-rung (41 dB measured r5) while head bytes are negligible — stage-wise
-noise shaping. The bulk storage (the meta-FDL) stays int8; the rung meets
+decaying IR's signal energy, so head quantization noise would dominate
+the rung (int8 row scales cap near 41 dB) while head bytes are
+negligible — stage-wise noise shaping. The bulk storage (the meta-FDL) stays int8; the rung meets
 its 46 dB reference class (``compressed_fdl_test.cpp:24-29``) this way.
 """
 
@@ -46,24 +46,7 @@ from neojax.conv import fdl as fdl_lib
 from neojax.conv import nested as nested_lib
 from neojax.conv.convolver import PartitionedConfig, _canon_partitions
 from neojax.fft import matmul_backend
-from neojax.ops.quantize import int_max_for
 
-
-def _fft_precisions(config: PartitionedConfig):
-    """Hybrid-specific transform precision policy.
-
-    The exact-class rungs (split/dense) run the tail's meta GEMMs and the
-    XLA head transforms at HIGH (3-pass bf16x3): measured 96.7 dB vs the
-    90 dB reference class bound at 724 vs 452 M samples/s (r5 same-claim
-    A/B at S=64) — the head's in-kernel transforms stay 6-pass exact,
-    which is what keeps the rung comfortably above class (nested at
-    all-HIGH measured 89.8, *below*). Other storages follow the nested
-    ladder."""
-    from jax import lax as _lax
-
-    if config.storage in ("split", "dense"):
-        return (_lax.Precision.HIGH, _lax.Precision.HIGH)
-    return nested_lib._fft_precisions(config)
 
 __all__ = [
     "hybrid_filter_params",
@@ -107,23 +90,6 @@ def hybrid_filter_params(
     hi = np.imag(head).astype(np.float32)
     params["head_re"] = jnp.asarray(np.concatenate([hr[::-1], hr[::-1]], axis=0))
     params["head_im"] = jnp.asarray(np.concatenate([hi[::-1], hi[::-1]], axis=0))
-    if config.storage in ("split", "int16", "int8") and config.block_size % 2 == 0:
-        # Packed-layout head params for the FUSED whole-stream kernel
-        # (the TPU fast path, r4; see _use_fused_head for the storage
-        # gate): filt planes / dcny side filter / pre-shifted rim copies,
-        # via the convolver's own builder.
-        import dataclasses as _dc
-
-        from neojax.conv import convolver as _cv
-
-        head_cfg = _dc.replace(
-            config, num_partitions=s, layout="ring", mac_backend="pallas",
-            packed=True, fused=True, storage=_head_storage(config),
-        )
-        params["head_packed"] = _cv.filter_params(
-            head_cfg, np.moveaxis(head, 1, 0)
-        )
-
     if p > s:
         tail = np.moveaxis(filt[s:], 0, 1)  # back to [C', P-S, K]
         tail_cfg_parts = tail
@@ -153,29 +119,6 @@ def _head_storage_init(config, s):
                             config.num_bins)
 
 
-def _use_fused_head(config: PartitionedConfig) -> bool:
-    """The head runs through the fused whole-stream Pallas kernel on TPU
-    (or in interpreter mode for tests): DFT matrices are fetched once per
-    CHUNK instead of re-read every block, the per-block XLA glue around
-    the small head MAC disappears, and the S-row ring stays VMEM-RESIDENT
-    across the chunk (r5, ``fused_step._RESIDENT_MAX``).
-
-    Storage gate measured same-process at the headline config (S=64,
-    v5e, r5): split/int16/int8 all win big through the kernel (split
-    696 vs ~450 M samples/s); bf16 measured 951 fused vs 966 XLA — its
-    ring is small enough that the XLA head keeps a slim edge, so bf16
-    stays on the XLA path."""
-    import jax as _jax
-
-    from neojax.kernels import fused_step as _fs
-
-    return (
-        config.storage in ("split", "int16", "int8")
-        and config.block_size % 2 == 0
-        and (_fs._INTERPRET or _jax.default_backend() == "tpu")
-    )
-
-
 def hybrid_init_state(config: PartitionedConfig, params: dict) -> dict:
     c = config.channels
     k = config.num_bins
@@ -184,12 +127,7 @@ def hybrid_init_state(config: PartitionedConfig, params: dict) -> dict:
         "btail": jnp.zeros((c, config.block_size), jnp.float32),
         "head_pos": jnp.zeros((), jnp.int32),
     }
-    if _use_fused_head(config) and "head_packed" in params:
-        state["head_fdl"], state["head_dcny"] = fdl_lib.fdl_packed_init(
-            _head_storage(config), s, c, config.block_size
-        )
-    else:
-        state["head_fdl"] = _head_storage_init(config, s)
+    state["head_fdl"] = _head_storage_init(config, s)
     if "tail" in params:
         # only the meta ring (+ pos/scales) of the nested engine is needed:
         # the block-tail / prev-spectra bookkeeping is owned by the head.
@@ -205,6 +143,51 @@ def hybrid_init_state(config: PartitionedConfig, params: dict) -> dict:
         state["prev_spec"] = jnp.zeros((2, c, k, s), prev_dtype)
         state["tail_frames"] = jnp.zeros((2, c, k, s), jnp.float32)
     return state
+
+
+# State entries owned by the chunk-rate tail (present only when P > S).
+_TAIL_KEYS = ("meta_fdl", "meta_pos", "meta_scales", "prev_spec", "tail_frames")
+
+
+def _tail_refresh(config, tail_params, meta_mats, mstate, cur):
+    """Chunk-boundary tail update: meta-FFT of the [previous | current]
+    chunk spectra window, meta-ring insert, meta MAC, inverse meta-FFT ->
+    the next chunk's S precomputed tail frames. ``cur`` [2, C, K, S] are
+    this chunk's block spectra; returns the new ``_TAIL_KEYS`` entries.
+
+    Tail meta-filter index q' multiplies the window q'+1 chunks old: at
+    this chunk's end the newest ring entry (age 0) is the window just
+    inserted, and the *next* chunk's tail needs ages 0..P2t-1 against
+    F[0..]."""
+    s = cur.shape[-1]
+    fwd_prec, _ = nested_lib._fft_precisions(config)
+    meta_mf, meta_mi_tail = meta_mats
+    prev = mstate["prev_spec"]
+    # lane-packed [re | im] meta-FFT: one GEMM (nested._meta_gemm_mats)
+    wpk = jnp.concatenate(
+        [prev[0], cur[0].astype(prev.dtype), prev[1], cur[1].astype(prev.dtype)],
+        axis=-1,
+    ).astype(jnp.float32)
+    x = matmul_backend._matmul(wpk, meta_mf, fwd_prec)
+    mpos = mstate["meta_pos"]
+    mfdl, mscales = nested_lib.meta_insert(
+        mstate["meta_fdl"], mstate.get("meta_scales"),
+        jnp.stack([x[..., : 2 * s], x[..., 2 * s :]]), mpos,
+    )
+    acc_re, acc_im = nested_lib.meta_mac(
+        mfdl, mscales, tail_params["filt_re"], tail_params["filt_im"], mpos
+    )
+    accp = jnp.concatenate([acc_re, acc_im], axis=-1)
+    yt = matmul_backend._matmul(accp, meta_mi_tail, fwd_prec)  # 1/2S folded
+    new = {
+        "meta_fdl": mfdl,
+        "meta_pos": jnp.mod(mpos + 1, mfdl.shape[1]),
+        "prev_spec": cur.astype(prev.dtype),
+        "tail_frames": jnp.stack([yt[..., :s], yt[..., s:]]),  # [2, C, K, S]
+    }
+    if mscales is not None:
+        new["meta_scales"] = mscales
+    return new
 
 
 def process_hybrid(
@@ -223,9 +206,7 @@ def process_hybrid(
     k = config.num_bins
     s = params["head_re"].shape[0] // 2
     has_tail = "tail" in params
-    quant = config.storage in ("int8", "int16")
-    imax = int_max_for(fdl_lib.STORAGE_DTYPES[config.storage]) if quant else None
-    fwd_prec, inv_prec = _fft_precisions(config)
+    fwd_prec, inv_prec = nested_lib._fft_precisions(config)
 
     signal = jnp.asarray(signal, jnp.float32)
     squeeze = signal.ndim == 1
@@ -239,111 +220,11 @@ def process_hybrid(
 
     head_re = params["head_re"]
     head_im = params["head_im"]
-    if has_tail:
-        tail_re = params["tail"]["filt_re"]
-        tail_im = params["tail"]["filt_im"]
-        p2t, _, tail_shared = nested_lib._static_dims(params["tail"])
-        # hoisted out of the scan (in-trace generation is not loop-hoisted)
-        meta_mf, meta_mi_tail = nested_lib._meta_gemm_mats(s)
+    # hoisted out of the scan (in-trace generation is not loop-hoisted)
+    meta_mats = nested_lib._meta_gemm_mats(s) if has_tail else None
 
     rf_cat = matmul_backend.rfft_cat_matrices(n)
     irf_cat = matmul_backend.irfft_cat_matrices(n)
-
-    fused_head = _use_fused_head(config) and "head_packed" in params \
-        and "head_dcny" in state
-    if fused_head:
-        import dataclasses as _dc
-
-        from neojax.conv import convolver as cv_mod
-        from neojax.kernels import fused_step as _fs
-        from neojax.kernels.fused_step import fused_stream
-
-        hp = params["head_packed"]
-        head_cfg = _dc.replace(
-            config, num_partitions=s, storage=_head_storage(config)
-        )
-        shared_h = "filt_rim8" in hp
-        rim_h = hp["filt_rim8"] if shared_h else hp["filt_rim"]
-        mat_dt = (
-            jnp.bfloat16 if _head_storage(config) == "bf16" else jnp.float32
-        )
-        cs_h, abt_h = matmul_backend.packed_stream_mats(n, mat_dt)
-        cpad = -(-c // 128) * 128
-
-    def fused_head_chunk(btail, hfdl, hdcny, hpos, tail_frames, chunk):
-        """One chunk's S head blocks through ONE fused_stream call; the
-        chunk-rate tail sum rides the kernel's acc_add seed. Returns
-        (outs [S, C, B], cur [2, C, K, S], new head carry)."""
-        sig_c = jnp.moveaxis(chunk, 0, 1).reshape(c, s * b)
-        sigpad = jnp.concatenate([btail, sig_c], axis=-1)
-        dcfix_all, new_hdcny = cv_mod._dcfix_sequence(
-            head_cfg, {"filt_dcny": hp["filt_dcny"]}, hdcny, hpos, sigpad
-        )
-        if has_tail:
-            tf = tail_frames
-            # exact DC/Nyquist of the tail frames join the lane-0 fixup
-            add_dc = jnp.stack(
-                [tf[0, :, 0, :].T, tf[0, :, k - 1, :].T], axis=1
-            )  # [S, 2, C]
-            dcfix_all = dcfix_all + add_dc
-            accadd = jnp.moveaxis(tf[:, :, :b, :], -1, 0)  # [S, 2, C, B]
-        else:
-            accadd = None
-
-        if isinstance(hfdl, tuple):
-            planes, scl3 = hfdl
-            sclp = jnp.pad(
-                scl3[:, :, 0], ((0, 0), (0, cpad - c)), constant_values=1.0
-            )
-            out_c, new_planes, new_sclp = fused_stream(
-                sigpad, planes, rim_h, hpos, dcfix_all, cs_h, abt_h, sclp,
-                None, accadd, shared_filter=shared_h, interpret=_fs._INTERPRET,
-            )
-            new_hfdl = (new_planes, new_sclp[:, :c, None])
-            scl_cur = new_sclp[:, :c]
-        else:
-            out_c, new_planes = fused_stream(
-                sigpad, hfdl, rim_h, hpos, dcfix_all, cs_h, abt_h, None,
-                None, accadd, shared_filter=shared_h, interpret=_fs._INTERPRET,
-            )
-            new_hfdl = new_planes
-            scl_cur = None
-
-        cur = None
-        if has_tail:
-            # Reconstruct this chunk's S block spectra from the head ring
-            # (depth S: after S inserts it holds exactly this chunk), with
-            # the exact f32 DC/Nyquist from the side-carry.
-            order = jnp.mod(hpos + jnp.arange(s), s)
-            pr = jnp.take(new_planes, order, axis=1)  # [2, S, C, B]
-            if scl_cur is not None:
-                m = int_max_for(new_planes.dtype)
-                sc = jnp.take(scl_cur, order, axis=0)  # [S, C]
-                prf = pr.astype(jnp.float32) * (sc * (1.0 / m))[None, :, :, None]
-            else:
-                prf = pr.astype(jnp.float32)
-            dc_ny = jnp.take(new_hdcny, order, axis=0)  # [S, C, 2]
-            re_full = jnp.concatenate(
-                [
-                    prf[0].at[..., 0].set(dc_ny[..., 0]),
-                    dc_ny[..., 1][..., None],
-                ],
-                axis=-1,
-            )  # [S, C, K]
-            im_full = jnp.concatenate(
-                [
-                    prf[1].at[..., 0].set(0.0),
-                    jnp.zeros((s, c, 1), jnp.float32),
-                ],
-                axis=-1,
-            )
-            cur = jnp.stack(
-                [jnp.moveaxis(re_full, 0, -1), jnp.moveaxis(im_full, 0, -1)]
-            )  # [2, C, K, S]
-
-        outs = jnp.moveaxis(out_c.reshape(c, s, b), 1, 0)  # [S, C, B]
-        new_btail = sig_c[:, -b:]
-        return outs, cur, (new_btail, new_hfdl, new_hdcny, hpos)
 
     def block_step(carry, block):
         btail, hfdl, hpos, tail_frames, r = carry
@@ -366,172 +247,32 @@ def process_hybrid(
         return (block, hfdl, (hpos + 1) % s, tail_frames, r + 1), ys
 
     def chunk_step(carry, chunk):  # chunk [S, C, B]
-        btail, hfdl, hdcny, hpos, mstate = carry
+        btail, hfdl, hpos, mstate = carry
         tail_frames = mstate["tail_frames"] if has_tail else jnp.zeros(
             (2, c, k, 0), jnp.float32
         )
+        carry_in = (btail, hfdl, hpos, tail_frames, jnp.zeros((), jnp.int32))
+        if not has_tail:
+            (btail, hfdl, hpos, _, _), outs = lax.scan(block_step, carry_in, chunk)
+            return (btail, hfdl, hpos, mstate), outs
+        (btail, hfdl, hpos, _, _), (outs, specs) = lax.scan(
+            block_step, carry_in, chunk
+        )
+        cur = jnp.moveaxis(specs, 0, -1)  # [2, C, K, S]
+        mstate = _tail_refresh(config, params["tail"], meta_mats, mstate, cur)
+        return (btail, hfdl, hpos, mstate), outs
 
-        if fused_head:
-            outs, cur, (btail, hfdl, hdcny, hpos) = fused_head_chunk(
-                btail, hfdl, hdcny, hpos, tail_frames, chunk
-            )
-        else:
-            carry_in = (
-                btail, hfdl, hpos, tail_frames, jnp.zeros((), jnp.int32)
-            )
-            if has_tail:
-                (btail, hfdl, hpos, _, _), (outs, specs) = lax.scan(
-                    block_step, carry_in, chunk
-                )
-                cur = jnp.moveaxis(specs, 0, -1)  # [2, C, K, S]
-            else:
-                (btail, hfdl, hpos, _, _), outs = lax.scan(
-                    block_step, carry_in, chunk
-                )
-
-        new_mstate = mstate
-        if has_tail:
-            prev = mstate["prev_spec"]
-            # lane-packed [re | im] meta-FFT: one GEMM (nested._meta_gemm_mats)
-            wpk = jnp.concatenate(
-                [
-                    prev[0],
-                    cur[0].astype(prev.dtype),
-                    prev[1],
-                    cur[1].astype(prev.dtype),
-                ],
-                axis=-1,
-            ).astype(jnp.float32)
-            x = matmul_backend._matmul(wpk, meta_mf, fwd_prec)
-            xre = x[..., : 2 * s]
-            xim = x[..., 2 * s :]
-
-            mfdl = mstate["meta_fdl"]
-            mpos = mstate["meta_pos"]
-            z = jnp.zeros((), mpos.dtype)
-            row_f = jnp.stack([xre, xim])
-            if quant:
-                # group-refined meta-bin scales (see nested._QUANT_GROUPS)
-                g = nested_lib._quant_groups(config, s)
-                gs = 2 * s // g
-                grp = row_f.reshape(2, c, k, g, gs)
-                peak = jnp.max(jnp.abs(grp), axis=(0, 4))  # [C, K, G]
-                scale = jnp.where(peak > 0, peak, 1.0)
-                q = jnp.clip(
-                    jnp.round(grp / scale[None, :, :, :, None] * imax),
-                    -imax, imax,
-                ).astype(mfdl.dtype).reshape(2, c, k, 2 * s)
-                mfdl = lax.dynamic_update_slice(mfdl, q[:, None], (z, mpos, z, z, z))
-                mscales = lax.dynamic_update_slice(
-                    mstate["meta_scales"], scale[None], (mpos, z, z, z)
-                )
-            else:
-                mfdl = lax.dynamic_update_slice(
-                    mfdl, row_f.astype(mfdl.dtype)[:, None], (z, mpos, z, z, z)
-                )
-                mscales = None
-
-            # MAC over the tail meta-partitions. Tail meta-filter index q'
-            # multiplies the window q'+1 chunks old: at this chunk's end the
-            # newest ring entry (age 0) is the window we just inserted, and
-            # the *next* chunk's tail needs ages 0..P2t-1 against F[0..].
-            if tail_shared and nested_lib._use_nested_kernel(config):
-                # Pallas nested-MAC (same routing as conv.nested): DMA-rate
-                # meta-plane reads for every storage; in-kernel group
-                # dequant for the quantized ones.
-                from neojax.kernels.nested_mac import nested_mac_pallas
-
-                fre = lax.dynamic_slice_in_dim(tail_re, p2t - 1 - mpos, p2t, axis=0)
-                fim = lax.dynamic_slice_in_dim(tail_im, p2t - 1 - mpos, p2t, axis=0)
-                acc_re, acc_im = nested_mac_pallas(
-                    mfdl,
-                    mscales if quant else None,
-                    fre[:, 0].astype(jnp.float32),
-                    fim[:, 0].astype(jnp.float32),
-                    interpret=nested_lib._INTERPRET,
-                )
-                xr = None
-            elif tail_shared:
-                fre = lax.dynamic_slice_in_dim(tail_re, p2t - 1 - mpos, p2t, axis=0)
-                fim = lax.dynamic_slice_in_dim(tail_im, p2t - 1 - mpos, p2t, axis=0)
-                xr = mfdl[0].astype(jnp.float32)
-                xi = mfdl[1].astype(jnp.float32)
-                fr2 = fre.astype(jnp.float32)
-                fi2 = fim.astype(jnp.float32)
-                dq = mscales
-            else:
-                ages = jnp.mod(mpos - jnp.arange(p2t), p2t)
-                xr = mfdl[0][ages].astype(jnp.float32)
-                xi = mfdl[1][ages].astype(jnp.float32)
-                fr2 = tail_re.astype(jnp.float32)
-                fi2 = tail_im.astype(jnp.float32)
-                dq = mscales[ages] if quant else None
-            if xr is not None:
-                if quant:
-                    g = nested_lib._quant_groups(config, s)
-                    gs = 2 * s // g
-                    dqv = (dq * (1.0 / imax))[..., None]  # [P2t, C, K, G, 1]
-                    xr = (xr.reshape(p2t, c, k, g, gs) * dqv).reshape(
-                        p2t, c, k, 2 * s
-                    )
-                    xi = (xi.reshape(p2t, c, k, g, gs) * dqv).reshape(
-                        p2t, c, k, 2 * s
-                    )
-                acc_re = jnp.sum(xr * fr2 - xi * fi2, axis=0)  # [C, K, 2S]
-                acc_im = jnp.sum(xr * fi2 + xi * fr2, axis=0)
-
-            accp = jnp.concatenate([acc_re, acc_im], axis=-1)
-            yt = matmul_backend._matmul(accp, meta_mi_tail, fwd_prec)
-            new_tail_frames = jnp.stack(
-                [yt[..., :s], yt[..., s:]]
-            )  # [2, C, K, S] (1/2S folded into the matrix)
-
-            new_mstate = {
-                "meta_fdl": mfdl,
-                "meta_pos": jnp.mod(mpos + 1, p2t),
-                "prev_spec": cur.astype(prev.dtype),
-                "tail_frames": new_tail_frames,
-            }
-            if quant:
-                new_mstate["meta_scales"] = mscales
-
-        return (btail, hfdl, hdcny, hpos, new_mstate), outs
-
-    mstate0 = {}
-    if has_tail:
-        mstate0 = {
-            "meta_fdl": state["meta_fdl"],
-            "meta_pos": state["meta_pos"],
-            "prev_spec": state["prev_spec"],
-            "tail_frames": state["tail_frames"],
-        }
-        if quant:
-            mstate0["meta_scales"] = state["meta_scales"]
-
-    hdcny0 = state.get("head_dcny", jnp.zeros((s, c, 2), jnp.float32))
-    (btail, hfdl, hdcny, hpos, mstate), outs = lax.scan(
+    mstate0 = {key: state[key] for key in _TAIL_KEYS if key in state}
+    (btail, hfdl, hpos, mstate), outs = lax.scan(
         chunk_step,
-        (state["btail"], state["head_fdl"], hdcny0, state["head_pos"], mstate0),
+        (state["btail"], state["head_fdl"], state["head_pos"], mstate0),
         chunks,
     )
     out = (
         jnp.moveaxis(outs, (0, 1), (1, 2))
         .reshape(c, num_chunks * s * b)[:, :t_len]
     )
-    new_state = {"btail": btail, "head_fdl": hfdl, "head_pos": hpos}
-    if "head_dcny" in state:
-        new_state["head_dcny"] = hdcny
-    if has_tail:
-        new_state.update(
-            {
-                "meta_fdl": mstate["meta_fdl"],
-                "meta_pos": mstate["meta_pos"],
-                "prev_spec": mstate["prev_spec"],
-                "tail_frames": mstate["tail_frames"],
-            }
-        )
-        if quant:
-            new_state["meta_scales"] = mstate["meta_scales"]
+    new_state = {"btail": btail, "head_fdl": hfdl, "head_pos": hpos, **mstate}
     if squeeze:
         out = out[0]
     return new_state, out
@@ -625,7 +366,7 @@ class HybridStream:
         b = cfg.block_size
         n = cfg.transform_size
         s = self.s
-        fwd_prec, inv_prec = _fft_precisions(cfg)
+        fwd_prec, inv_prec = nested_lib._fft_precisions(cfg)
         rf_cat = self._rf_cat
         irf_cat = self._irf_cat
 
@@ -659,112 +400,16 @@ class HybridStream:
         return new_state, out
 
     def _tail_step(self, state):
-        """Chunk-boundary tail refresh — the meta (nested) update of
-        ``process_hybrid.chunk_step``, verbatim math."""
-        cfg = self.config
-        s = self.s
-        c = cfg.channels
-        k = cfg.num_bins
-        quant = cfg.storage in ("int8", "int16")
-        imax = (
-            int_max_for(fdl_lib.STORAGE_DTYPES[cfg.storage]) if quant else None
-        )
-        fwd_prec, _ = _fft_precisions(cfg)
-        tail_re = self.params["tail"]["filt_re"]
-        tail_im = self.params["tail"]["filt_im"]
-        p2t, _, tail_shared = nested_lib._static_dims(self.params["tail"])
-        meta_mf, meta_mi_tail = self._meta_mats
-
-        prev = state["prev_spec"]
-        cur = state["chunk_spec"]
-        wpk = jnp.concatenate(
-            [prev[0], cur[0].astype(prev.dtype), prev[1], cur[1].astype(prev.dtype)],
-            axis=-1,
-        ).astype(jnp.float32)
-        x = matmul_backend._matmul(wpk, meta_mf, fwd_prec)
-        xre = x[..., : 2 * s]
-        xim = x[..., 2 * s :]
-
-        mfdl = state["meta_fdl"]
-        mpos = state["meta_pos"]
-        z = jnp.zeros((), mpos.dtype)
-        row_f = jnp.stack([xre, xim])
-        if quant:
-            g = nested_lib._quant_groups(cfg, s)
-            gs = 2 * s // g
-            grp = row_f.reshape(2, c, k, g, gs)
-            peak = jnp.max(jnp.abs(grp), axis=(0, 4))
-            scale = jnp.where(peak > 0, peak, 1.0)
-            q = jnp.clip(
-                jnp.round(grp / scale[None, :, :, :, None] * imax), -imax, imax
-            ).astype(mfdl.dtype).reshape(2, c, k, 2 * s)
-            mfdl = jax.lax.dynamic_update_slice(mfdl, q[:, None], (z, mpos, z, z, z))
-            mscales = jax.lax.dynamic_update_slice(
-                state["meta_scales"], scale[None], (mpos, z, z, z)
-            )
-        else:
-            mfdl = jax.lax.dynamic_update_slice(
-                mfdl, row_f.astype(mfdl.dtype)[:, None], (z, mpos, z, z, z)
-            )
-            mscales = None
-
-        if tail_shared and nested_lib._use_nested_kernel(cfg):
-            # same Pallas nested-MAC routing as process_hybrid: the
-            # chunk-boundary callback (the latency spike the per-block
-            # driver bounds) reads the meta planes at DMA rate
-            from neojax.kernels.nested_mac import nested_mac_pallas
-
-            fre = jax.lax.dynamic_slice_in_dim(tail_re, p2t - 1 - mpos, p2t, axis=0)
-            fim = jax.lax.dynamic_slice_in_dim(tail_im, p2t - 1 - mpos, p2t, axis=0)
-            acc_re, acc_im = nested_mac_pallas(
-                mfdl,
-                mscales if quant else None,
-                fre[:, 0].astype(jnp.float32),
-                fim[:, 0].astype(jnp.float32),
-                interpret=nested_lib._INTERPRET,
-            )
-            xr = None
-        elif tail_shared:
-            fre = jax.lax.dynamic_slice_in_dim(tail_re, p2t - 1 - mpos, p2t, axis=0)
-            fim = jax.lax.dynamic_slice_in_dim(tail_im, p2t - 1 - mpos, p2t, axis=0)
-            xr = mfdl[0].astype(jnp.float32)
-            xi = mfdl[1].astype(jnp.float32)
-            fr2 = fre.astype(jnp.float32)
-            fi2 = fim.astype(jnp.float32)
-            dq = mscales
-        else:
-            ages = jnp.mod(mpos - jnp.arange(p2t), p2t)
-            xr = mfdl[0][ages].astype(jnp.float32)
-            xi = mfdl[1][ages].astype(jnp.float32)
-            fr2 = tail_re.astype(jnp.float32)
-            fi2 = tail_im.astype(jnp.float32)
-            dq = mscales[ages] if quant else None
-        if xr is not None:
-            if quant:
-                g = nested_lib._quant_groups(cfg, s)
-                gs = 2 * s // g
-                dqv = (dq * (1.0 / imax))[..., None]
-                xr = (xr.reshape(p2t, c, k, g, gs) * dqv).reshape(
-                    p2t, c, k, 2 * s
-                )
-                xi = (xi.reshape(p2t, c, k, g, gs) * dqv).reshape(
-                    p2t, c, k, 2 * s
-                )
-            acc_re = jnp.sum(xr * fr2 - xi * fi2, axis=0)
-            acc_im = jnp.sum(xr * fi2 + xi * fr2, axis=0)
-
-        accp = jnp.concatenate([acc_re, acc_im], axis=-1)
-        yt = matmul_backend._matmul(accp, meta_mi_tail, fwd_prec)
-        new_tail_frames = jnp.stack([yt[..., :s], yt[..., s:]])
-
+        """Chunk-boundary tail refresh — the same ``_tail_refresh`` as
+        ``process_hybrid.chunk_step``."""
         new_state = dict(state)
-        new_state["meta_fdl"] = mfdl
-        new_state["meta_pos"] = jnp.mod(mpos + 1, p2t)
-        new_state["prev_spec"] = cur.astype(prev.dtype)
-        new_state["tail_frames"] = new_tail_frames
+        new_state.update(
+            _tail_refresh(
+                self.config, self.params["tail"], self._meta_mats, state,
+                state["chunk_spec"],
+            )
+        )
         new_state["r"] = jnp.zeros((), jnp.int32)
-        if quant:
-            new_state["meta_scales"] = mscales
         return new_state
 
     # -- the real-time callback -------------------------------------------

@@ -1,7 +1,7 @@
 """Nested (two-level) FDL convolution: the large-IR throughput engine.
 
 The chunked Toeplitz engine (``conv.chunked``) materializes the partition
-MAC as an MXU matmul whose [K, 2S, 2M] operand re-reads ~S shifted copies
+MAC as a batched matmul whose [K, 2S, 2M] operand re-reads ~S shifted copies
 of the filter every chunk. This module removes that expansion with a
 classic recursive observation: per frequency bin, the FDL reduction
 
@@ -20,7 +20,7 @@ level up ("meta"), along the frame axis:
   - block irfft -> S output blocks
 
 Per chunk this touches the meta-FDL once (the irreducible read), a
-P2-row filter, and O(S^2 * C * K) MXU flops for the meta transforms —
+P2-row filter, and O(S^2 * C * K) GEMM flops for the meta transforms —
 there is no Toeplitz tensor at all. Two more wins over the Toeplitz form:
 
   * **per-channel filters cost nothing extra** (the MAC is elementwise,
@@ -42,10 +42,10 @@ filter via the tile-reverse + dynamic-slice trick of ``conv.fdl``.
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 from jax import lax
 
+from neojax.conv import fdl as fdl_lib
 from neojax.conv.chunked import _bucket_bands  # noqa: F401
 from neojax.conv.chunked import _fft_precisions as _chunked_fft_precisions
 from neojax.conv.convolver import PartitionedConfig, _canon_partitions
@@ -124,22 +124,16 @@ def nested_filter_params(
 
 # Quantized meta-FDL scale granularity: one dynamic scale per GROUP of
 # meta-bins instead of one per whole [2S] row. The meta-spectrum's dynamic
-# range across meta-bins is what sank the int8 rung at production depth
-# (33.6 dB at P=938, VERDICT r2 #3): with a shared row scale, low-magnitude
-# meta-bins quantize to a few codes. Group scales cost G extra f32 per
-# (p2, c, k) row and tighten the peak-to-rms loading of each group's
-# quantizer: the r5 steady-state isolation sweep (tools/int8_sweep.py)
-# measured the G ladder at HIGH transforms as G16 45.4 / G32 46.5 /
-# G64 48.1 dB vs the 46 dB class (compressed_fdl_test.cpp:24-29, 5e-3).
-# int8 runs G=64 — the 48 dB rung, ~2 dB of margin over its class — and
-# the scales stay bandwidth-cheap through the Pallas nested-MAC kernel's
-# in-kernel lane expansion (no HBM-side f32 materialization).
+# range across meta-bins is what sinks the int8 rung at production depth
+# with a shared row scale: low-magnitude meta-bins quantize to a few codes.
+# Group scales cost G extra f32 per (p2, c, k) row and tighten the
+# peak-to-rms loading of each group's quantizer (tools/int8_sweep.py
+# sweeps G against the 46 dB class, compressed_fdl_test.cpp:24-29, 5e-3).
+# int8 runs G=64, about 2 dB over its class.
 #
-# int16 deliberately runs G=1 (one scale per whole row): its 16-bit codes
-# leave ~10 dB of slack over the reference's 74 dB class at row granularity
-# (86.4 dB measured r5), and a per-row scalar broadcast fuses into the XLA
-# MAC for free — the group-reshape machinery was costing int16 its entire
-# half-the-bytes bandwidth advantage (VERDICT r3 weak #2).
+# int16 runs G=1 (one scale per whole row): its 16-bit codes leave ample
+# slack over the reference's 74 dB class at row granularity, and a per-row
+# scalar broadcast fuses into the XLA MAC for free.
 _QUANT_GROUPS = {"int8": 64, "int16": 1}
 
 
@@ -151,54 +145,30 @@ def _quant_groups(config: PartitionedConfig, s: int) -> int:
 
 
 def _storage_dtype(config: PartitionedConfig):
-    from neojax.conv.fdl import STORAGE_DTYPES
-
     if config.storage == "dense":  # host/CPU convenience: split planes anyway
         return jnp.float32
-    return STORAGE_DTYPES[config.storage]
+    return fdl_lib.STORAGE_DTYPES[config.storage]
 
 
 def _fft_precisions(config: PartitionedConfig):
-    # Measured ladder (64 ch / 10 s IR / block 512, S=128 on v5e, r5
-    # steady-state sweep in tools/int8_sweep.py):
-    #   int8  + HIGH transforms: 48.1 dB at G=64 scales — the first int8
-    #          config MEETING its reference class (46 dB / 5e-3,
-    #          compressed_fdl_test.cpp:24-29). DEFAULT transforms cost
-    #          ~2.1 dB (their own ~47.6 dB floor) and push the rung to
-    #          ~45.9 — out of class; HIGHEST buys nothing over HIGH.
-    #   int16 + HIGH transforms: 86.4 dB (quality mode — DEFAULT would
-    #          drown its 16-bit storage floor)
-    #   bf16 / split: see the chunked policy (DEFAULT / HIGHEST).
-    from jax import lax as _lax
-
-    if config.storage in ("int8", "int16"):
-        return (_lax.Precision.HIGH, _lax.Precision.HIGH)
+    """(forward, inverse) transform precision per storage. On the GPU, HIGH
+    runs f32 operands as TF32 (10-bit mantissa, the same as DEFAULT):
+      int8  HIGH: TF32 error sits below the int8 storage floor (46 dB
+            class, compressed_fdl_test.cpp:24-29); HIGHEST adds ~0.1 dB.
+      int16 HIGHEST: at TF32 the 10 s-IR rung read ~66 dB on an H100,
+            below its 74 dB class.
+      bf16 / split: the chunked policy (DEFAULT / HIGHEST)."""
+    if config.storage == "int8":
+        return (lax.Precision.HIGH, lax.Precision.HIGH)
     return _chunked_fft_precisions(config)
 
 
-# Flip to run the Pallas nested-MAC kernel in interpreter mode (CPU
-# tests); read at trace time — clear jax caches when toggling.
-_INTERPRET = False
-
-
-def _use_nested_kernel(config: PartitionedConfig) -> bool:
-    """Pallas nested-MAC on TPU for SHARED filters, every storage: fused
-    group dequant for int8/int16, plain DMA-rate MAC for split/bf16 (the
-    XLA elementwise reduce ran ~4x below the DMA rate on the meta planes,
-    r5 decomposition). The per-channel case keeps the XLA gather path."""
-    if config.mac_backend == "xla":
-        return False
-    return _INTERPRET or jax.default_backend() == "tpu"
-
-
 def _meta_gemm_mats(s: int):
-    """Single-GEMM split-complex meta transforms (r4).
+    """Single-GEMM split-complex meta transforms.
 
-    The meta C2C transform used to run as FOUR [.., 2S] @ [2S, 2S]
-    matmuls (re/im x cos/sin); at 2S = 256 those shapes reach only
-    ~47 TFLOP/s on a v5e MXU (r3 trace, docs/design.md 5b-ii). Packing
-    operands [re | im] along lanes turns it into ONE [.., 4S] @ [4S, 4S]
-    GEMM — identical flops, 512-deep contraction, much better MXU shape.
+    Instead of FOUR [.., 2S] @ [2S, 2S] matmuls (re/im x cos/sin),
+    operands are packed [re | im] along lanes into ONE [.., 4S] @ [4S, 4S]
+    GEMM — identical flops, a 512-deep contraction, fewer launches.
     The inverse additionally keeps only the OLS tail columns (frames
     s..2s-1 of each plane): [4S, 2S], HALF the inverse flops, with the
     1/2S normalization folded in.
@@ -226,6 +196,54 @@ def _meta_gemm_mats(s: int):
         axis=1,
     )
     return mf, mi_tail
+
+
+def meta_insert(fdl, scales, row, pos):
+    """Write one meta-spectrum ``row`` [2, C, K, 2S] f32 into ring slot
+    ``pos`` of ``fdl`` [2, P2, C, K, 2S]. Quantized storages (``scales``
+    [P2, C, K, G] given) take one dynamic scale per group of 2S/G meta-bins
+    (see ``_QUANT_GROUPS``). Returns (fdl, scales)."""
+    z = jnp.zeros((), pos.dtype)
+    if scales is None:
+        row = row.astype(fdl.dtype)[:, None]
+        return lax.dynamic_update_slice(fdl, row, (z, pos, z, z, z)), None
+    q, scale = fdl_lib.quantize_split(row, fdl.dtype, scales.shape[-1])
+    fdl = lax.dynamic_update_slice(fdl, q[:, None], (z, pos, z, z, z))
+    scales = lax.dynamic_update_slice(scales, scale[None], (pos, z, z, z))
+    return fdl, scales
+
+
+def meta_mac(fdl, scales, filt_re, filt_im, pos):
+    """Partition MAC over the meta-FDL ring, dequantizing on the fly.
+
+    ``fdl`` [2, P2, C, K, 2S] (storage dtype), ``scales`` [P2, C, K, G]
+    f32 or None, filter planes as built by ``nested_filter_params``
+    (shared: tile-reversed [2*P2, 1, K, 2S]; per-channel: [P2, C, K, 2S]),
+    ``pos`` the ring slot of the newest row. Returns (acc_re, acc_im)
+    [C, K, 2S] f32: sum over q of row(age q) * filt[q]."""
+    p2, c, k, s2 = fdl.shape[1:]
+    if filt_re.shape[1] == 1:
+        # shared: the rotated filter is one contiguous slice (conv.fdl trick)
+        fr = lax.dynamic_slice_in_dim(filt_re, p2 - 1 - pos, p2, axis=0)
+        fi = lax.dynamic_slice_in_dim(filt_im, p2 - 1 - pos, p2, axis=0)
+        xr, xi, dq = fdl[0], fdl[1], scales
+    else:
+        ages = jnp.mod(pos - jnp.arange(p2), p2)
+        fr, fi = filt_re, filt_im
+        xr, xi = fdl[0][ages], fdl[1][ages]
+        dq = None if scales is None else scales[ages]
+    xr = xr.astype(jnp.float32)
+    xi = xi.astype(jnp.float32)
+    fr = fr.astype(jnp.float32)
+    fi = fi.astype(jnp.float32)
+    if dq is not None:
+        g = dq.shape[-1]
+        dq = (dq * (1.0 / int_max_for(fdl.dtype)))[..., None]  # [P2, C, K, G, 1]
+        xr = (xr.reshape(p2, c, k, g, s2 // g) * dq).reshape(p2, c, k, s2)
+        xi = (xi.reshape(p2, c, k, g, s2 // g) * dq).reshape(p2, c, k, s2)
+    acc_re = jnp.sum(xr * fr - xi * fi, axis=0)
+    acc_im = jnp.sum(xr * fi + xi * fr, axis=0)
+    return acc_re, acc_im
 
 
 def _static_dims(params: dict) -> tuple[int, int, bool]:
@@ -275,20 +293,17 @@ def process_nested(
     """
     b = config.block_size
     n = config.transform_size
-    k = config.num_bins
-    p2, s, shared = _static_dims(params)
+    p2, s, _ = _static_dims(params)
     if chunk_blocks is not None and chunk_blocks != s:
         raise ValueError(f"chunk_blocks {chunk_blocks} != filter params' {s}")
-    carry_dtype = state["fdl"].dtype
     quant = config.storage in ("int8", "int16")
-    imax = int_max_for(carry_dtype) if quant else None
     prev_dtype = state["prev"].dtype
     fwd_prec, inv_prec = _fft_precisions(config)
     meta_prec = fwd_prec
-    # bf16 rung: big intermediates that ONLY feed 1-pass (DEFAULT) matmuls
-    # are kept bf16 end-to-end — DEFAULT rounds operands to bf16 inside
-    # the MXU anyway, so this halves their HBM traffic at identical
-    # matmul numerics (accumulation stays f32 via preferred_element_type).
+    # bf16 rung: big intermediates that ONLY feed DEFAULT-precision
+    # matmuls are kept bf16 end-to-end — half the memory traffic, at the
+    # rung's own storage precision (accumulation stays f32 via
+    # preferred_element_type).
     lane_dt = jnp.bfloat16 if config.storage == "bf16" else jnp.float32
 
     signal = jnp.asarray(signal, jnp.float32)
@@ -342,79 +357,8 @@ def process_nested(
         xim = x[..., 2 * s :]
 
         # ring insert + rotated meta-filter, exactly the fdl_index schedule
-        z = jnp.zeros((), pos.dtype)
-        row_f = jnp.stack([xre, xim])  # [2, C, K, 2S] f32
-        if quant:
-            g = _quant_groups(config, s)
-            gs = 2 * s // g
-            grp = row_f.reshape(2, c, k, g, gs)
-            peak = jnp.max(jnp.abs(grp), axis=(0, 4))  # [C, K, G]
-            scale = jnp.where(peak > 0, peak, 1.0)
-            q = jnp.clip(
-                jnp.round(grp / scale[None, :, :, :, None] * imax), -imax, imax
-            ).astype(carry_dtype).reshape(2, c, k, 2 * s)
-            fdl = lax.dynamic_update_slice(fdl, q[:, None], (z, pos, z, z, z))
-            scales = lax.dynamic_update_slice(
-                scales, scale[None], (pos, z, z, z)
-            )
-        else:
-            row = row_f.astype(carry_dtype)[:, None]  # [2,1,C,K,2S]
-            fdl = lax.dynamic_update_slice(fdl, row, (z, pos, z, z, z))
-        if shared:
-            fre = lax.dynamic_slice_in_dim(filt_re, p2 - 1 - pos, p2, axis=0)
-            fim = lax.dynamic_slice_in_dim(filt_im, p2 - 1 - pos, p2, axis=0)
-        else:
-            ages = jnp.mod(pos - jnp.arange(p2), p2)
-            xg_re = fdl[0][ages]
-            xg_im = fdl[1][ages]
-
-        if shared and _use_nested_kernel(config):
-            # Pallas kernel: planes (+ scale table) straight from HBM,
-            # dequant in-register for the quantized storages (group scales
-            # lane-expanded in-kernel) — no f32 delay-line materialization
-            # pass, DMA-rate reads for every storage.
-            from neojax.kernels.nested_mac import nested_mac_pallas
-
-            acc_re, acc_im = nested_mac_pallas(
-                fdl,
-                scales if quant else None,
-                fre[:, 0].astype(jnp.float32),
-                fim[:, 0].astype(jnp.float32),
-                interpret=_INTERPRET,
-            )
-            xr = None  # MAC done; skip the XLA path below
-        elif shared:
-            xr = fdl[0].astype(jnp.float32)
-            xi = fdl[1].astype(jnp.float32)
-            fr = fre.astype(jnp.float32)
-            fi = fim.astype(jnp.float32)
-            dq = scales
-        else:
-            xr = xg_re.astype(jnp.float32)
-            xi = xg_im.astype(jnp.float32)
-            fr = filt_re.astype(jnp.float32)
-            fi = filt_im.astype(jnp.float32)
-            dq = scales[ages] if quant else None
-        if xr is not None:
-            if quant:
-                g = _quant_groups(config, s)
-                gs = 2 * s // g
-                if g == 1:
-                    # Row-granular scale (int16): a scalar-per-row
-                    # broadcast that XLA fuses straight into the MAC.
-                    dqr = dq * (1.0 / imax)  # [P2, C, K, 1]
-                    xr = xr * dqr
-                    xi = xi * dqr
-                else:
-                    dq = (dq * (1.0 / imax))[..., None]  # [P2, C, K, G, 1]
-                    xr = (xr.reshape(p2, c, k, g, gs) * dq).reshape(
-                        p2, c, k, 2 * s
-                    )
-                    xi = (xi.reshape(p2, c, k, g, gs) * dq).reshape(
-                        p2, c, k, 2 * s
-                    )
-            acc_re = jnp.sum(xr * fr - xi * fi, axis=0)  # [C, K, 2S]
-            acc_im = jnp.sum(xr * fi + xi * fr, axis=0)
+        fdl, scales = meta_insert(fdl, scales, jnp.stack([xre, xim]), pos)
+        acc_re, acc_im = meta_mac(fdl, scales, filt_re, filt_im, pos)
 
         # inverse meta-FFT: one packed GEMM, tail columns only, 1/2S folded
         accp = jnp.concatenate([acc_re, acc_im], axis=-1).astype(lane_dt)

@@ -6,9 +6,8 @@ window, producing ``[ch, num_partitions, B + 1]`` complex spectra. The
 number of partitions is ``ceil(len / B)`` (last partition zero-padded).
 
 This is *filter preparation*, run once at setup: it executes host-side in
-numpy so that the complex spectra never need to touch a device (TPU
-runtimes need not support complex dtypes — only the float32 re/im planes
-derived by ``filter_params`` are transferred).
+numpy; only the float32 re/im planes derived by ``filter_params`` (or,
+for the "dense" storage, the complex array) are transferred.
 """
 
 from __future__ import annotations

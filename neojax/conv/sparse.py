@@ -1,20 +1,19 @@
 """Sparsity masks for the FDL filter, incl. perceptual (A-weighted) thresholding.
 
-TPU-native counterpart of the reference's ``sparse_filter`` /
+Counterpart of the reference's ``sparse_filter`` /
 ``csr_matrix`` (``src/neo/convolution/sparse_filter.hpp:16``,
 ``src/neo/container/csr_matrix.hpp:21-98``) and the plugin's perceptual
 sparsification predicate (``extra/plugin/src/dsp/DenseConvolution.cpp:205-267``).
 
-On TPU a CSR gather per partition row would defeat the vector units for the
+A CSR gather per partition row would defeat vectorization for the
 densities this workload sees; instead the sparsity predicate produces a
-boolean *bin mask* ``[P, K]`` which (a) zeroes the dense filter — XLA's MAC
-then streams exactly the same bytes but multiplies by zero — and (b) feeds
-the Pallas sparse kernel, which skips fully-masked partition tiles. The
-mask's density is the quality/throughput dial, swept by the SNR harness.
+boolean *bin mask* ``[P, K]`` which zeroes the dense filter — XLA's MAC
+then streams exactly the same bytes but multiplies by zero (the chunked
+engine's banded buckets do skip the work). The mask's density is the
+quality dial, swept by the SNR harness.
 
 All mask construction is *host-side numpy*: it happens once at filter-setup
-time, and complex spectra never need to touch a device (TPU runtimes need
-not support complex dtypes).
+time.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Integer/bit helpers used for FFT sizing.
 
-TPU-native counterpart of the reference's bit utilities and FFT order
+Counterpart of the reference's bit utilities and FFT order
 helpers (reference: ``src/neo/bit/bit_ceil.hpp``, ``bit_log2.hpp``,
 ``src/neo/fft/order.hpp:35`` ``next_order``, ``src/neo/math/idiv.hpp:11``).
 These run at trace time on Python ints — shapes in XLA are static, so all

@@ -1,7 +1,6 @@
 """Split-complex (planar) layout helpers.
 
-The TPU VPU has no complex lanes, so the framework's performance layout for
-spectra is *split complex*: separate real/imag planes stacked on a leading
+The framework's performance layout for spectra is *split complex*: separate real/imag planes stacked on a leading
 axis of size 2 (reference counterpart: ``src/neo/complex/split_complex.hpp:10``
 and the split FDL/filter variants). Interleaved ``complex64`` is kept as the
 user-facing dtype; these helpers convert at the boundary.

@@ -1,13 +1,12 @@
 """Fixed-point (Q-format) arithmetic: q7 / q15 with saturating ops.
 
-TPU-native counterpart of the reference's fixed-point layer
+Counterpart of the reference's fixed-point layer
 (``src/neo/fixed_point/fixed_point.hpp:33,89-95,125-126`` and the
 saturating SIMD kernels ``fixed_point/simd.hpp:28-105``): values are int8
 (q7, 7 fractional bits) or int16 (q15) arrays; add/subtract saturate at
 the type bounds and multiply is ``(a * b) >> frac_bits`` computed in a
 wider type then clipped — exactly the scalar semantics the reference's
-SSE/NEON kernels implement per-lane, here vectorized over whole arrays on
-the VPU (int ops are native on TPU).
+SSE/NEON kernels implement per-lane, here vectorized over whole arrays.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Unit conversions: decibels, mel scale, A-weighting, FFT bin frequencies.
 
-TPU-native (jnp, vectorized) counterparts of:
+Vectorized (jnp) counterparts of:
   - ``src/neo/unit/decibel.hpp:15,28`` ``amplitude_to_db`` (accurate/estimate,
     -144 dB floor, non-positive gain maps to the floor),
   - ``src/neo/math/fast_math.hpp:12,21`` ``fast_log2``/``fast_log10``
@@ -122,7 +122,7 @@ def rfftfreq(n: int, d: float = 1.0, dtype=jnp.float32):
 def polar(magnitude, angle):
     """Split-complex polar -> rectangular: (mag*cos(angle), mag*sin(angle)).
 
-    Reference ``math/polar.hpp`` returns std::complex; on TPU the native
+    Reference ``math/polar.hpp`` returns std::complex; here the native
     form is the (re, im) plane pair.
     """
     return magnitude * jnp.cos(angle), magnitude * jnp.sin(angle)

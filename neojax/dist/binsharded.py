@@ -3,7 +3,7 @@
 The third parallel axis of SURVEY.md section 2.7: frequency bins are
 independent in the FDL MAC (``multiply_add.hpp:280-301``), so for very
 large transforms the delay line, filter and MAC shard over the mesh axis
-"bin". The TPU-native formulation makes everything *except one psum*
+"bin". The split-plane formulation makes everything *except one psum*
 local, because the DFT-as-matmul backend distributes over its contraction:
 
   - forward: each device computes only its bin columns of the rfft

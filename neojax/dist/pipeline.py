@@ -22,7 +22,7 @@ The ppermute (one [C_local, K] spectrum) overlaps with the irfft; sizing:
 hand-off bytes per block are 1/(P/D) of the local MAC traffic, so scaling
 stays near-linear for deep FDLs.
 
-Storage: "dense" (complex64 — CPU meshes), the TPU-native split planes
+Storage: "dense" (complex64), the split planes
 ("split" f32 / "bf16"), or quantized planes ("int8"/"int16") where each
 spectrum carries a per-channel dynamic scale (``conv.fdl`` semantics): the
 scale rides the same ppermute hand-off as its spectrum, and the dequant

@@ -1,4 +1,4 @@
-"""Channel-sharded chunked (Toeplitz-MXU) processing.
+"""Channel-sharded chunked (Toeplitz-GEMM) processing.
 
 The throughput path of the framework combined with its distribution story:
 the chunked engine's history/accumulator tensors carry the channel axis

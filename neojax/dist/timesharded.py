@@ -19,11 +19,9 @@ step. For UPOLA the overlap tail additionally requires one full step on
 the last halo block (its output is discarded). Warmup cost per device is
 O(P) rffts against O(m*P) MAC work for the stream, and the exchange
 itself is a single message that XLA schedules ahead of the warmup's
-data dependency. Measured at the headline config (TIMESHARD_BENCH.json,
-v5e: t_step 239.9 us vs t_insert 71.4 us, halo 126 MB): per-device
-scaling efficiency 0.77 at m = P blocks/device, 0.93 at 4P, 0.995 at
-64P — so >= 0.9 needs m >~ 3.5P (about 1.1 min of 48 kHz audio per
-device at the 10 s-IR config).
+data dependency. Per-device scaling efficiency is about
+m*t_step / (m*t_step + t_warmup) for m blocks per device;
+``tools/bench_timesharded.py`` measures both times on the GPU.
 
 Exactness: warmup replays the SAME ``_spectrum_and_push`` code path as the
 sequential stream (including dynamic quantization for int8/int16 storage),
@@ -41,6 +39,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from neojax.conv import convolver as cv
+from neojax.conv import fdl as fdl_lib
 
 __all__ = ["timesharded_process"]
 
@@ -72,8 +71,6 @@ def _assemble_ring(config: cv.PartitionedConfig, state: dict, spectra) -> dict:
     """Place m batch-transformed spectra into ring slots 0..m-1 (ring
     layout) or reversed shift slots (shift layout) — the exact state m
     sequential ``insert_only_step`` pushes would produce."""
-    from neojax.ops.quantize import int_max_for
-
     state = dict(state)
     ring = config.layout == "ring"
     if config.storage == "dense":
@@ -90,12 +87,9 @@ def _assemble_ring(config: cv.PartitionedConfig, state: dict, spectra) -> dict:
         fdl = state["fdl"]
         if isinstance(fdl, tuple):
             planes, scales = fdl
-            mx = int_max_for(planes.dtype)
-            peak = jnp.max(jnp.abs(planes_new), axis=(0, 3))  # [m, C]
-            scale = jnp.where(peak > 0, peak, 1.0)[..., None]  # [m, C, 1]
-            q = jnp.clip(
-                jnp.round(planes_new / scale[None] * mx), -mx, mx
-            ).astype(planes.dtype)
+            q, scale = fdl_lib.quantize_split(
+                planes_new, planes.dtype, scales.shape[-1]
+            )
             state["fdl"] = (
                 planes.at[:, :m].set(q),
                 scales.at[:m].set(scale),
@@ -124,10 +118,9 @@ def _warmup(config: cv.PartitionedConfig, params: dict, halo: jnp.ndarray) -> di
     blocks, and ring insertion order is data-independent — so the whole
     prefill collapses to ONE batched forward transform of the P-1 warmup
     frames plus a single ring assembly (quantization vectorized over
-    frames, same per-frame math). This replaces the r2-r4 scan of P-1
-    sequential insert steps, whose (P-1) * t_insert cost capped scaling
-    efficiency at 0.68 for 960 blocks/device (TIMESHARD_BENCH r4); the
-    batched warmup costs about one chunk's worth of transforms. Four-step
+    frames, same per-frame math) instead of a scan of P-1 sequential
+    insert steps; the batched warmup costs about one chunk's worth of
+    transforms. Four-step
     transform configs (N >= 4096) keep the scan (their streaming
     transforms are not batch-shaped).
     """

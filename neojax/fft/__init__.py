@@ -1,7 +1,7 @@
 """neojax.fft — transforms: fft/ifft/rfft/irfft, STFT, DCT-II, Bluestein DFT.
 
 Backends (the vendor-vs-fallback axis of the reference, ``fft/fft.hpp:39-51``):
-``"xla"`` (jnp.fft) and ``"matmul"`` (MXU DFT matmuls, split-complex native).
+``"xla"`` (jnp.fft) and ``"matmul"`` (DFT-as-GEMM, split-complex native).
 """
 
 from neojax.fft.api import fft, ifft, irfft, rfft, set_backend, get_backend

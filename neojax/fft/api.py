@@ -5,9 +5,10 @@ Mirrors the reference's plan API semantics (``src/neo/fft/fft.hpp:39-51``,
 norm in {"backward", "ortho", "forward"} with numpy conventions. Two
 backends play the role of the reference's vendor-vs-fallback switch:
 
-  - ``"xla"``    : jnp.fft (XLA's built-in FFT) — any size.
-  - ``"matmul"`` : DFT-as-matmul on the MXU (``neojax.fft.matmul_backend``)
-                   — the TPU performance path for block-sized transforms.
+  - ``"xla"``    : jnp.fft (XLA's built-in FFT; cuFFT on the GPU) — any
+                   size. What ``"auto"`` picks.
+  - ``"matmul"`` : DFT-as-matmul (``neojax.fft.matmul_backend``), with the
+                   four-step decomposition above ``_MATMUL_MAX_SIZE``.
 
 The default backend is process-global and settable via ``set_backend``.
 """
@@ -46,15 +47,7 @@ def get_backend() -> str:
 def _resolve_backend(backend, n: int) -> str:
     b = backend or _BACKEND
     if b == "auto":
-        # On TPU the MXU DFT-matmul is the native path (XLA's FFT op is not
-        # implemented on all TPU runtimes and loses to the MXU anyway at
-        # block-convolution sizes); large sizes use the 4-step (Bailey)
-        # matmul decomposition. On CPU, jnp.fft (pocketfft) wins.
-        import jax
-
-        if jax.default_backend() != "tpu":
-            return "xla"
-        b = "matmul"
+        return "xla"
     if b == "matmul" and n > _MATMUL_MAX_SIZE:
         from neojax.core.bits import is_pow2
 

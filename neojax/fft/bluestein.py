@@ -7,7 +7,7 @@ FFT, chirp post-multiply. Like the reference plan, both directions are
 ``neojax.fft.api`` layer handles norms.
 
 Also provides the naive O(N^2) DFT (``src/neo/fft/dft.hpp:36-59``) used as a
-test oracle — on TPU this is just the matmul backend.
+test oracle — here this is just the matmul backend.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Counterparts of ``src/neo/fft/rfft.hpp:44-63`` (``rfft_deinterleave``: two
 real FFTs from one complex FFT via conjugate symmetry) and the split
-transform plans (``fft/split_fft.hpp:22-34``) whose TPU-native form is the
-planar matmul backend.
+transform plans (``fft/split_fft.hpp:22-34``), here the planar matmul
+backend.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def rfft_deinterleave(x, y, n: int | None = None, backend: str | None = None):
 
 def split_fft(re, im, n: int | None = None):
     """C2C FFT over planar re/im arrays (no complex dtype anywhere) —
-    the TPU-native split transform. Unnormalized forward."""
+    the split transform. Unnormalized forward."""
     re = jnp.asarray(re, jnp.float32)
     im = jnp.asarray(im, jnp.float32)
     n = int(n if n is not None else re.shape[-1])

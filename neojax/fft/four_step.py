@@ -1,4 +1,4 @@
-"""Large-N FFT via the recursive 4-step (Bailey) decomposition on the MXU.
+"""Large-N FFT via the recursive 4-step (Bailey) decomposition as GEMMs.
 
 Plays the role of the reference's large-order plan family (its fallback
 plans go to order 27, ``c2c_dit2_plan.hpp:22``): for N = N1*N2 the DFT
@@ -9,11 +9,10 @@ factors into
   3. N2-point DFTs over the n2 axis,
   4. index transpose (output k = k1 + N1*k2).
 
-Leaf DFTs are [batch, R] @ [R, R] MXU matmuls (split-complex; no complex
+Leaf DFTs are [batch, R] @ [R, R] matmuls (split-complex; no complex
 dtype on device). Factors above the leaf cutoff recurse, which trades one
-O(N) twiddle + transpose pass per level for an O(N * factor) matmul — on
-a v5e this recursion is ~1.8x faster than a flat square split at N = 2^20
-and removes any upper size limit (any power of two that fits in HBM).
+O(N) twiddle + transpose pass per level for an O(N * factor) matmul and
+removes any upper size limit (any power of two that fits in memory).
 
 Real transforms use the half-size packing trick (one N/2 C2C + an O(N)
 post-twiddle, ``fft/experimental/rfft.hpp:20``) instead of a zero-imag
@@ -137,10 +136,10 @@ def rfft_packed_split_large(x, n: int):
     the im-plane holds Nyquist.re; see ``matmul_backend.rfft_packed_split``)
     evaluated through the four-step recursion instead of a dense [N, B]
     matmul. At block 4096 (N = 8192) the dense matrices are ~2 x 134 MB and
-    get re-read from HBM every streamed block — this path touches only
-    O(batch * N) data per pass plus a few KB of leaf matrices, which is what
-    makes the reference's block-4096 benchmark grid
-    (``extra/benchmark/src/convolution.cpp:47-50``) transform-cheap on TPU.
+    get re-read from device memory every streamed block — this path touches
+    only O(batch * N) data per pass plus a few KB of leaf matrices (the
+    reference's block-4096 benchmark grid,
+    ``extra/benchmark/src/convolution.cpp:47-50``).
     """
     re, im = rfft_split_large(x, n)
     b = n // 2

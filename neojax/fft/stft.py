@@ -1,8 +1,8 @@
 """Short-time Fourier transform as a framed, batched rfft.
 
 Counterpart of ``src/neo/fft/stft.hpp:31-125``: the reference loops
-channels x frames serially, windowing and rfft-ing one frame at a time. On
-TPU the whole cube is computed at once: frames are gathered into
+channels x frames serially, windowing and rfft-ing one frame at a time.
+Here the whole cube is computed at once: frames are gathered into
 ``[ch, frames, transform]`` (zero-padded, window applied over the full
 transform length like the reference) and a single batched rfft produces
 ``[ch, frames, bins]``. Frame count matches ``detail::num_sftf_frames``:

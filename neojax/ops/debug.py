@@ -1,6 +1,6 @@
 """Numerical-safety tooling: NaN/Inf checks, x64 parity runs.
 
-SURVEY.md section 5: the reference's CI runs ASan/UBSan; the TPU-native
+SURVEY.md section 5: the reference's CI runs ASan/UBSan; the JAX
 analogues are functional checks — ``checkify``-wrapped NaN/Inf detection
 inside jit, an eager ``assert_finite``, and a helper to rerun a function
 in float64 for parity comparison (the reference's f64 path with its 1e-9

@@ -3,9 +3,8 @@
 Counterpart of the reference algorithm layer (``src/neo/algorithm/add.hpp``,
 ``multiply.hpp``, ``scale.hpp``) and, centrally, the batched complex
 ``multiply_add`` (``src/neo/algorithm/multiply_add.hpp:28-69,280-368``) that
-the FDL convolution engine spends its time in. On TPU these are VPU ops that
-XLA fuses; the fused multi-partition variant lives in
-``neojax.kernels.fdl_mac``.
+the FDL convolution engine spends its time in. These are elementwise ops
+that XLA fuses; the multi-partition MAC is ``neojax.conv.fdl.fdl_mac_split``.
 """
 
 from __future__ import annotations

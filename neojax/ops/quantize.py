@@ -1,12 +1,12 @@
 """Reduced-precision spectrum storage: int8 / int16 / bf16.
 
-TPU-native counterpart of the reference's ``compressed_fdl``
+Counterpart of the reference's ``compressed_fdl``
 (``src/neo/convolution/compressed_fdl.hpp:17,26-48``) and
 ``compressed_accessor`` (``src/neo/container/compressed_accessor.hpp:16``):
 values are quantized by ``round(x * int_max)`` on store and dequantized by
-``x * (1 / int_max)`` on load. On TPU the dequant multiply fuses into the
+``x * (1 / int_max)`` on load. The dequant multiply fuses into the
 consuming MAC, so the delay line halves (int16/bf16) or quarters (int8) its
-HBM footprint *and* bandwidth.
+memory footprint *and* bandwidth.
 
 Split-complex arrays quantize per-plane with the same fixed scale — matching
 the reference, which uses the full-scale int range rather than per-block

@@ -1,4 +1,4 @@
-"""Chunked (Toeplitz-MXU) path must match the per-block streaming path."""
+"""Chunked (Toeplitz-GEMM) path must match the per-block streaming path."""
 
 import numpy as np
 import pytest
@@ -77,7 +77,7 @@ def test_chunked_rejects_per_channel_filter(make_noise):
 
 def test_chunked_banded_sparse_matches_masked_dense(make_noise):
     """Banded-bucket sparse chunked == per-block convolver with the same
-    mask (the perceptual sparse path at MXU speed)."""
+    mask (the perceptual sparse path at GEMM speed)."""
     b = 64
     p = 24
     ir = (make_noise(p * b) * np.exp(-np.arange(p * b) / (4 * b))).astype(np.float32) * 0.3

@@ -114,7 +114,7 @@ def test_bin_sharded_matches_oracle(make_noise):
 
 @pytest.mark.parametrize("storage,tol", [("bf16", 2e-2), ("int16", 1e-4), ("int8", 5e-3)])
 def test_bin_sharded_quantized(make_noise, storage, tol):
-    """Quantized bin-sharding (VERDICT round-1 item 9): per-shard dynamic
+    """Quantized bin-sharding: per-shard dynamic
     scales, no extra collective; bounds follow the reference's compressed-FDL
     tolerances (``test/.../compressed_fdl_test.cpp:24-29``) relative to the
     split-storage run."""

@@ -1,4 +1,4 @@
-"""Split-storage (TPU-native, complex-free) pipeline on the CPU mesh."""
+"""Split-storage (complex-free) pipeline on the CPU mesh."""
 
 import numpy as np
 import pytest

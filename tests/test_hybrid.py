@@ -109,50 +109,6 @@ def test_hybrid_reduced_precision(make_noise, storage, tol):
         assert np.max(np.abs(out[ch] - ref)) < tol
 
 
-def test_hybrid_fused_head_matches_xla_head(make_noise):
-    """r4: the fused-Pallas head path (interpret mode) equals the XLA head
-    for the storages that use it (split exact; int16/int8 within their
-    storage classes — the fused path's meta window reads ring-stored
-    spectra, the XLA path f32 ones)."""
-    import jax
-
-    from neojax.conv import hybrid as hy
-    from neojax.kernels import fused_step as fs
-
-    rng = np.random.default_rng(5)
-    b, p, c, s = 64, 32, 4, 8
-    parts = (
-        (rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1)))
-        * 0.1
-    ).astype(np.complex64)
-    sig = make_noise(c, 4 * s * b)
-    tol = {"split": 1e-5, "int16": 2e-3, "int8": 6e-2}
-
-    for storage in ("split", "int16", "int8"):
-        cfg = conv.PartitionedConfig(b, p, c, storage=storage)
-        params = hy.hybrid_filter_params(cfg, parts, s)
-        assert "head_packed" in params
-        params_x = {k: v for k, v in params.items() if k != "head_packed"}
-        st_x = hy.hybrid_init_state(cfg, params_x)
-        _, out_x = jax.jit(partial(hy.process_hybrid, cfg))(
-            params_x, st_x, jnp.asarray(sig)
-        )
-        fs._INTERPRET = True
-        jax.clear_caches()
-        try:
-            st_f = hy.hybrid_init_state(cfg, params)
-            assert "head_dcny" in st_f
-            _, out_f = jax.jit(partial(hy.process_hybrid, cfg))(
-                params, st_f, jnp.asarray(sig)
-            )
-        finally:
-            fs._INTERPRET = False
-            jax.clear_caches()
-        scale = float(jnp.max(jnp.abs(out_x)))
-        d = float(jnp.max(jnp.abs(out_x - out_f))) / max(scale, 1e-6)
-        assert d < tol[storage], (storage, d)
-
-
 @pytest.mark.parametrize("storage", ["split", "int8"])
 def test_hybrid_stream_matches_process(make_noise, storage):
     """HybridStream (per-block real-time driver) is block-for-block
@@ -167,7 +123,6 @@ def test_hybrid_stream_matches_process(make_noise, storage):
 
     cfg = conv.PartitionedConfig(b, p, c, storage=storage)
     params = hy.hybrid_filter_params(cfg, parts, s)
-    params = {k: v for k, v in params.items() if k != "head_packed"}
     st = hy.hybrid_init_state(cfg, params)
     _, ref = jax.jit(partial(hy.process_hybrid, cfg))(params, st, jnp.asarray(sig))
 
@@ -198,7 +153,6 @@ def test_hybrid_stream_through_executor(make_noise):
 
     cfg = conv.PartitionedConfig(b, p, c, storage="split")
     params = hy.hybrid_filter_params(cfg, parts, s)
-    params = {k: v for k, v in params.items() if k != "head_packed"}
     st = hy.hybrid_init_state(cfg, params)
     _, ref = jax.jit(partial(hy.process_hybrid, cfg))(params, st, jnp.asarray(sig))
 

@@ -153,41 +153,6 @@ def test_nested_state_checkpoint_roundtrip(make_noise, tmp_path):
     assert np.max(np.abs(np.asarray(a) - np.asarray(bb))) == 0.0
 
 
-def test_nested_mac_kernel_matches_xla(make_noise):
-    """The Pallas nested-MAC kernel (fused group dequant, interpret mode)
-    is bit-close to the XLA dequant path for both quantized storages."""
-    from functools import partial
-
-    from neojax.conv import nested as nested_mod
-
-    b, p, c, s = 64, 8, 4, 4
-    rng = np.random.default_rng(3)
-    parts = (
-        (rng.standard_normal((1, p, b + 1)) + 1j * rng.standard_normal((1, p, b + 1)))
-        * 0.1
-    ).astype(np.complex64)
-    sig = make_noise(c, 4 * s * b)
-
-    for storage in ("int8", "int16"):
-        cfg_x = conv.PartitionedConfig(b, p, c, storage=storage, mac_backend="xla")
-        params = nested_mod.nested_filter_params(cfg_x, parts, s)
-        _, out_x = jax.jit(partial(nested_mod.process_nested, cfg_x))(
-            params, nested_mod.nested_init_state(cfg_x, params), jnp.asarray(sig)
-        )
-
-        cfg_k = conv.PartitionedConfig(b, p, c, storage=storage, mac_backend="pallas")
-        nested_mod._INTERPRET = True
-        jax.clear_caches()
-        try:
-            _, out_k = jax.jit(partial(nested_mod.process_nested, cfg_k))(
-                params, nested_mod.nested_init_state(cfg_k, params), jnp.asarray(sig)
-            )
-        finally:
-            nested_mod._INTERPRET = False
-            jax.clear_caches()
-        assert float(jnp.max(jnp.abs(out_x - out_k))) < 1e-5, storage
-
-
 def test_nested_int16_row_scale_meets_class(make_noise):
     """int16 with G=1 row-granular scales stays within the reference's
     1e-4 tolerance class (compressed_fdl_test.cpp:24-29) on unit noise."""

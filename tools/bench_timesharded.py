@@ -1,24 +1,20 @@
-"""Quantify the time-sharded pipeline's warmup overhead (VERDICT r2 #7,
-r5 batched-warmup upgrade per VERDICT r4 #5).
+"""Quantify the time-sharded pipeline's warmup overhead on the GPU.
 
 The sequence-parallel stream (``neojax.dist.timesharded``) gives each
 device its predecessor's trailing P blocks as a ppermute halo and rebuilds
-the FDL state. Since r5 the rebuild is ONE batched forward transform +
-ring assembly (``dist.timesharded._warmup``) instead of P-1 sequential
-insert steps; scaling efficiency ≈ m*t_step / (m*t_step + t_warmup).
+the FDL state with ONE batched forward transform + ring assembly
+(``dist.timesharded._warmup``); scaling efficiency is about
+m*t_step / (m*t_step + t_warmup) for m blocks per device.
 
-This tool measures, on the real chip at the headline config
-(64 ch, 10 s IR ⇒ P=938→960, block 512):
+Measured at the headline config (64 ch, 10 s IR => P=938, block 512):
 
-  - t_step:         steady-state full-step time (sequential stream rate)
-  - t_warmup:       the batched halo->state reconstruction, one call
-  - t_insert (r4):  the old per-block insert-only step, for comparison
+  - t_step:    steady-state full-step time (sequential stream rate)
+  - t_warmup:  the batched halo->state reconstruction, one call
+  - t_insert:  the per-block insert-only step, for comparison
   - the halo size in bytes (P*B samples x channels x 4)
 
-and writes TIMESHARD_BENCH.json with the measured per-device efficiency
-model for a sweep of m (blocks/device), plus an 8-device virtual-CPU
-structural check (sharded output == sequential output) when run with
-JAX_PLATFORMS=cpu and --xla_force_host_platform_device_count=8.
+and writes TIMESHARD_BENCH.json with the per-device efficiency model for a
+sweep of m. Needs a GPU: python tools/bench_timesharded.py
 
 Reference semantics being distributed: the OLS carried window tail
 (``src/neo/convolution/overlap_save.hpp:37-55``) and FDL history — the
@@ -38,24 +34,16 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _setup():
+def bench_device(storage: str = "bf16") -> dict:
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    return jax
-
-
-def bench_tpu(storage: str = "bf16") -> dict:
-    jax = _setup()
     import jax.numpy as jnp
     from jax import lax
 
     from neojax.conv import convolver as cv
 
     B, C = 512, 64
-    P = -(-int(np.ceil(10.0 * 48000 / B)) // 32) * 32  # 960
-    cfg = cv.PartitionedConfig(B, P, C, storage=storage, mac_backend="pallas")
+    P = int(np.ceil(10.0 * 48000 / B))  # 938
+    cfg = cv.PartitionedConfig(B, P, C, storage=storage)
     rng = np.random.default_rng(0)
     parts = (
         rng.standard_normal((1, P, cfg.num_bins))
@@ -70,13 +58,11 @@ def bench_tpu(storage: str = "bf16") -> dict:
     def timed(fn, st, sig):
         """fn(params?, state, sig) -> (state, out-ish); donation-safe: the
         returned state is threaded into the next call."""
-        st, out = fn(st, sig)
-        float(jnp.sum(jnp.abs(jax.tree.leaves(out)[0]).astype(jnp.float32)))
+        st, out = jax.block_until_ready(fn(st, sig))
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
-            st, out = fn(st, sig)
-            float(jnp.sum(jnp.abs(jax.tree.leaves(out)[0]).astype(jnp.float32)))
+            st, out = jax.block_until_ready(fn(st, sig))
             ts.append(time.perf_counter() - t0)
         return min(ts) / nb
 
@@ -95,7 +81,7 @@ def bench_tpu(storage: str = "bf16") -> dict:
 
     t_insert = timed(warm, cv.init_state(cfg), sig)
 
-    # The r5 batched warmup: one call reconstructing the full state from a
+    # The batched warmup: one call reconstructing the full state from a
     # [C, P*B] halo (what each device actually runs).
     from neojax.dist import timesharded as ts
 
@@ -106,22 +92,13 @@ def bench_tpu(storage: str = "bf16") -> dict:
         st = ts._warmup(cfg, params, halo)
         return jax.tree.leaves(st["fdl"])[0]
 
-    float(jnp.sum(jnp.abs(warm_batched(halo)).astype(jnp.float32)))
+    jax.block_until_ready(warm_batched(halo))
     tws = []
     for _ in range(3):
         t0 = time.perf_counter()
-        float(jnp.sum(jnp.abs(warm_batched(halo)).astype(jnp.float32)))
+        jax.block_until_ready(warm_batched(halo))
         tws.append(time.perf_counter() - t0)
-    # subtract the flat fetch-sync latency measured against an empty fetch
-    @jax.jit
-    def noop(x):
-        return jnp.sum(x)
-
-    float(noop(halo))
-    t0 = time.perf_counter()
-    float(noop(halo))
-    t_sync = time.perf_counter() - t0
-    t_warm = max(min(tws) - t_sync, 1e-6)
+    t_warm = min(tws)
 
     halo_bytes = C * P * B * 4
     sweep = {}
@@ -132,63 +109,38 @@ def bench_tpu(storage: str = "bf16") -> dict:
         "config": {"block": B, "channels": C, "partitions": P, "storage": storage},
         "t_step_us": round(t_step * 1e6, 1),
         "t_warmup_batched_us": round(t_warm * 1e6, 1),
-        "t_insert_us_r4_path": round(t_insert * 1e6, 1),
-        "warmup_speedup_vs_r4": round((P - 1) * t_insert / t_warm, 1),
+        "t_insert_us": round(t_insert * 1e6, 1),
+        "warmup_speedup_vs_insert_steps": round((P - 1) * t_insert / t_warm, 1),
         "halo_mbytes": round(halo_bytes / 1e6, 1),
         "scaling_efficiency_vs_blocks_per_device": sweep,
         "note": (
-            "eff(m) = m*t_step / (m*t_step + t_warmup_batched); the r4 "
-            "model was m*t_step / (m*t_step + (P-1)*t_insert). Halo "
+            "eff(m) = m*t_step / (m*t_step + t_warmup_batched). Halo "
             "transfer itself is one ppermute message overlapped with "
             "warmup compute."
         ),
     }
 
 
-def check_cpu_mesh(n: int = 8) -> dict:
-    jax = _setup()
-    import jax.numpy as jnp
+def main() -> int:
+    import jax
 
-    from neojax.conv import convolver as cv
-    from neojax.dist.timesharded import timesharded_process
+    from neojax.bench.env import gpu_info, setup_compile_cache
 
-    if jax.local_device_count() < n:
-        return {"skipped": f"need {n} devices, have {jax.local_device_count()}"}
-
-    B, C, P = 64, 4, 8
-    cfg = cv.PartitionedConfig(B, P, C, storage="split")
-    rng = np.random.default_rng(0)
-    parts = (
-        rng.standard_normal((1, P, cfg.num_bins))
-        + 1j * rng.standard_normal((1, P, cfg.num_bins))
-    ).astype(np.complex64) * 0.1
-    params = cv.filter_params(cfg, parts)
-    sig = jnp.asarray(rng.uniform(-1, 1, (C, n * P * B)), jnp.float32)
-
-    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:n]), ("time",))
-    t0 = time.perf_counter()
-    out_sharded = np.asarray(timesharded_process(cfg, params, sig, mesh))
-    t_sh = time.perf_counter() - t0
-    _, out_seq = cv.process(cfg, params, cv.init_state(cfg), sig)
-    err = float(np.max(np.abs(out_sharded - np.asarray(out_seq))))
-    return {
-        "devices": n,
-        "max_abs_err_vs_sequential": err,
-        "ok": err < 1e-5,
-        "wall_s_sharded_first_call": round(t_sh, 3),
+    setup_compile_cache()
+    if jax.default_backend() != "gpu":
+        print(f"needs a GPU; JAX found {jax.default_backend()!r}", file=sys.stderr)
+        return 1
+    result = {
+        "metric": "timesharded_warmup_overhead",
+        "gpu": gpu_info(),
+        "device_kind": jax.devices()[0].device_kind,
+        "device": bench_device(),
     }
-
-
-def main() -> None:
-    jax = _setup()
-    result = {"metric": "timesharded_warmup_overhead"}
-    if jax.default_backend() == "tpu":
-        result["tpu"] = bench_tpu()
-    result["cpu_mesh_structural"] = check_cpu_mesh()
     print(json.dumps(result, indent=1))
     with open("TIMESHARD_BENCH.json", "w") as f:
         json.dump(result, f, indent=1)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,13 +1,13 @@
-"""int8 SNR-source isolation sweep at the headline depth (r5, VERDICT #1).
+"""int8 SNR-source isolation sweep at the headline depth.
 
 Runs the nested engine's int8 rung at the bench config (64 ch, 10 s IR,
-block 512, S=128) across {transform precision} x {scale-group count} x
-{MAC backend}, measuring SNR vs the same f64 UPOLS oracle bench.py uses.
-Controls: int16/HIGH, bf16/DEFAULT, split/HIGHEST rows locate the
-pipeline's transform-noise floor independently of FDL quantization.
+block 512, S=128) across {transform precision} x {scale-group count},
+measuring SNR vs the same f64 UPOLS oracle bench.py uses. Controls:
+int16/split/bf16 rows locate the pipeline's transform-noise floor
+independently of FDL quantization. On the GPU, "default" and "high" both
+run f32 matmuls as TF32.
 
-Each row re-jits from scratch; rows run in ONE process on one TPU claim
-(timings comparable, SNRs claim-independent anyway).
+Each row re-jits from scratch; all rows run in one process.
 
 Usage: python tools/int8_sweep.py [out.json]
 """
@@ -26,7 +26,6 @@ sys.path.insert(0, ".")
 import bench  # noqa: E402  (the bench module provides config + oracle)
 
 jax = bench._setup_jax()
-import jax.numpy as jnp  # noqa: E402
 from jax import lax  # noqa: E402
 
 from neojax.conv import convolver as cv  # noqa: E402
@@ -39,15 +38,14 @@ PREC = {
 }
 
 
-def run_row(storage, prec_name, groups, mac_backend, s=128):
+def run_row(storage, prec_name, groups, s=128):
     orig_groups = dict(nested._QUANT_GROUPS)
     nested._QUANT_GROUPS["int8"] = groups
     orig = nested._fft_precisions
     nested._fft_precisions = lambda config: PREC[prec_name]
     try:
         cfg = cv.PartitionedConfig(
-            bench.BLOCK, bench.P_REAL, bench.CHANNELS, storage=storage,
-            mac_backend=mac_backend,
+            bench.BLOCK, bench.P_REAL, bench.CHANNELS, storage=storage
         )
         parts = bench._make_parts(bench.P_REAL, cfg.num_bins)
         params = nested.nested_filter_params(cfg, parts, s)
@@ -65,7 +63,7 @@ def run_row(storage, prec_name, groups, mac_backend, s=128):
             ],
             np.float64,
         )
-        float(jnp.sum(jnp.abs(out)))
+        jax.block_until_ready(out)
         wall = time.perf_counter() - t0
         return head, wall
     finally:
@@ -79,26 +77,21 @@ def main():
     rows = {}
 
     grid = [
-        # (name, storage, prec, groups, mac)
-        ("int8/default/G16/pallas", "int8", "default", 16, "pallas"),
-        ("int8/default/G16/xla", "int8", "default", 16, "xla"),
-        ("int8/high/G16/xla", "int8", "high", 16, "xla"),
-        ("int8/high/G16/pallas", "int8", "high", 16, "pallas"),
-        ("int8/high/G32/xla", "int8", "high", 32, "xla"),
-        ("int8/highest/G32/xla", "int8", "highest", 32, "xla"),
-        ("int8/highest/G64/xla", "int8", "highest", 64, "xla"),
-        # the SHIPPED configuration (nested._QUANT_GROUPS int8=64 + HIGH
-        # + the Pallas nested-MAC kernel) and its XLA twin
-        ("int8/high/G64/xla", "int8", "high", 64, "xla"),
-        ("int8/high/G64/pallas", "int8", "high", 64, "pallas"),
-        ("int16/high/-/xla", "int16", "high", 16, "xla"),
-        ("bf16/default/-/xla", "bf16", "default", 16, "xla"),
-        ("split/highest/-/xla", "split", "highest", 16, "xla"),
-        ("split/default/-/xla", "split", "default", 16, "xla"),
+        # (name, storage, prec, groups); int8 ships G64 at "high"
+        ("int8/default/G16", "int8", "default", 16),
+        ("int8/high/G32", "int8", "high", 32),
+        ("int8/highest/G32", "int8", "highest", 32),
+        ("int8/high/G64", "int8", "high", 64),
+        ("int8/highest/G64", "int8", "highest", 64),
+        ("int16/high/-", "int16", "high", 16),
+        ("int16/highest/-", "int16", "highest", 16),
+        ("bf16/default/-", "bf16", "default", 16),
+        ("split/highest/-", "split", "highest", 16),
+        ("split/default/-", "split", "default", 16),
     ]
-    for name, storage, prec, groups, mac in grid:
+    for name, storage, prec, groups in grid:
         try:
-            head, wall = run_row(storage, prec, groups, mac)
+            head, wall = run_row(storage, prec, groups)
             snr = bench._snr_db(head, oracle)
             rows[name] = {"snr_db": round(snr, 2), "wall_s": round(wall, 1)}
             print(f"{name}: {snr:.2f} dB ({wall:.0f}s)", file=sys.stderr)
@@ -106,8 +99,9 @@ def main():
             rows[name] = {"error": f"{type(e).__name__}: {e}"[:200]}
             print(f"{name} FAILED: {e}", file=sys.stderr)
 
-    out = {"metric": "int8_snr_source_isolation", "rows": rows}
-    path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/int8_sweep.json"
+    out = {"metric": "int8_snr_source_isolation",
+           "device_kind": jax.devices()[0].device_kind, "rows": rows}
+    path = sys.argv[1] if len(sys.argv) > 1 else "int8_sweep.json"
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
